@@ -27,6 +27,7 @@ _I = ctypes.c_int
 # C entry -> argument types; each returns its cudaGetLastError() as an int.
 _SIGNATURES = {
     "acx_snappy_decode": [_P, _P, _I, _I, _P, _P, _P, _I, _P],
+    "acx_snappy_encode": [_P, _P, _I, _I, _P, _P, _P, _P],
     "acx_xxh64": [_P, _P, _I, _I, _P, _P],
 }
 

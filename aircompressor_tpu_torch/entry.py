@@ -8,19 +8,18 @@ import functools
 import numpy as np
 import torch
 
+from .host import snappy as host_snappy
 from .ops import snappy_decode, xxhash
 from .ops.batch import to_device_batch
 
 
 def _sample_batch(n_chunks: int, chunk: int = 4096, cap: int = 5120):
-    """Compressed chunks (via the reference tier) padded to (B, cap); the
-    same arrays as ``__graft_entry__._sample_batch``."""
-    from aircompressor_tpu.snappy import SnappyRefCompressor
-
+    """Compressed chunks (via the host reference codec) padded to (B, cap);
+    the same arrays as ``__graft_entry__._sample_batch``."""
     rng = np.random.default_rng(0)
-    comp = SnappyRefCompressor()
     base = bytes(rng.integers(0, 4, size=chunk, dtype=np.uint8))
-    blobs = [comp.compress(base[i % 7:] + base[:i % 7]) for i in range(n_chunks)]
+    blobs = [host_snappy.compress(base[i % 7:] + base[:i % 7])
+             for i in range(n_chunks)]
     buf = np.zeros((n_chunks, cap), np.uint8)
     lens = np.zeros(n_chunks, np.int32)
     for i, b in enumerate(blobs):
@@ -37,10 +36,10 @@ def decode_and_hash(comp: torch.Tensor, comp_lens: torch.Tensor,
             "xxh64": xxhash.xxh64(out, out_lens)}
 
 
-def entry(device):
+def entry(device="cuda"):
     """``(step, (comp, comp_lens))`` for the 8-chunk sample batch on
-    ``device``; ``step(comp, comp_lens)`` returns the dict of
-    ``decode_and_hash``."""
+    ``device`` (the card unless the caller asks for "cpu");
+    ``step(comp, comp_lens)`` returns the dict of ``decode_and_hash``."""
     buf, lens, chunk = _sample_batch(8)
     return (functools.partial(decode_and_hash, out_cap=chunk),
             to_device_batch(buf, lens, device))

@@ -1,0 +1,74 @@
+"""Scalar one-shot XXH64 (the public xxHash spec), the oracle of the xxh64
+kernel. A copy of ``aircompressor_tpu.xxhash._scalar.xxh64``."""
+
+from __future__ import annotations
+
+import numpy as np
+
+M64 = 0xFFFFFFFFFFFFFFFF
+
+P64_1 = 0x9E3779B185EBCA87
+P64_2 = 0xC2B2AE3D27D4EB4F
+P64_3 = 0x165667B19E3779F9
+P64_4 = 0x85EBCA77C2B2AE63
+P64_5 = 0x27D4EB2F165667C5
+
+
+def _rotl64(x: int, r: int) -> int:
+    return ((x << r) | (x >> (64 - r))) & M64
+
+
+def _u32le(b: np.ndarray, i: int) -> int:
+    return int(b[i]) | int(b[i + 1]) << 8 | int(b[i + 2]) << 16 | int(b[i + 3]) << 24
+
+
+def _u64le(b: np.ndarray, i: int) -> int:
+    return _u32le(b, i) | _u32le(b, i + 4) << 32
+
+
+def _round64(acc: int, lane: int) -> int:
+    return (_rotl64((acc + lane * P64_2) & M64, 31) * P64_1) & M64
+
+
+def _merge64(h: int, acc: int) -> int:
+    h ^= _round64(0, acc)
+    return (h * P64_1 + P64_4) & M64
+
+
+def xxh64(data, seed: int = 0) -> int:
+    """One-shot xxHash64 of a buffer. Returns unsigned 64-bit int."""
+    b = data if isinstance(data, np.ndarray) else np.frombuffer(memoryview(data), dtype=np.uint8)
+    n = b.size
+    i = 0
+    if n >= 32:
+        n_stripes = n // 32
+        words = b[: n_stripes * 32].view("<u8").reshape(n_stripes, 4)
+        accs = [(seed + P64_1 + P64_2) & M64, (seed + P64_2) & M64, seed & M64,
+                (seed - P64_1) & M64]
+        for s in range(n_stripes):
+            w = words[s]
+            for k in range(4):
+                accs[k] = _round64(accs[k], int(w[k]))
+        h = (_rotl64(accs[0], 1) + _rotl64(accs[1], 7) + _rotl64(accs[2], 12)
+             + _rotl64(accs[3], 18)) & M64
+        for a in accs:
+            h = _merge64(h, a)
+        i = n_stripes * 32
+    else:
+        h = (seed + P64_5) & M64
+    h = (h + n) & M64
+    while i + 8 <= n:
+        h = (_rotl64(h ^ _round64(0, _u64le(b, i)), 27) * P64_1 + P64_4) & M64
+        i += 8
+    if i + 4 <= n:
+        h = (_rotl64(h ^ (_u32le(b, i) * P64_1) & M64, 23) * P64_2 + P64_3) & M64
+        i += 4
+    while i < n:
+        h = (_rotl64(h ^ (int(b[i]) * P64_5) & M64, 11) * P64_1) & M64
+        i += 1
+    h ^= h >> 33
+    h = (h * P64_2) & M64
+    h ^= h >> 29
+    h = (h * P64_3) & M64
+    h ^= h >> 32
+    return h

@@ -1,29 +1,78 @@
-"""Batched Snappy decode on a torch device: the user surface over the kernel.
+"""Batched Snappy on a torch device: the user surface over the kernels.
 
-Counterpart of ``aircompressor_tpu.ops.batch.SnappyBatchCodec``. Every chunk
-goes to the decode kernel: it reads its input from device memory and has no
-limit on the compressed length, so there is no host tier for large blobs.
-Before its first batch, a codec decodes a 64 KB canary through the kernel
-and raises if the bytes differ; there is no fallback.
+Counterpart of ``aircompressor_tpu.ops.batch.SnappyBatchCodec`` and
+``snappy_framed_decompress_device``. Every chunk goes to the kernels: the
+decode kernel reads its input from device memory and has no limit on the
+compressed length, so there is no host tier for large blobs, and every
+chunk to compress goes through the encode kernel. Before its first batch
+each way, a codec runs a 64 KB canary through the kernel and raises if the
+bytes differ; there is no fallback. The codec runs on the card unless it is
+given ``device="cpu"``, where the plain PyTorch versions run.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import numpy as np
 import torch
 
-from aircompressor_tpu.errors import MalformedInputException
-from aircompressor_tpu.ops.batch import CHUNK, _pack, _round_up, _selfcheck_payload
-from aircompressor_tpu.snappy import SnappyCompressor
+from ..errors import MalformedInputException
+from ..host import framed, snappy as host_snappy
+from ..host.crc32c import crc32c_raw, mask_crc
+from . import checksum, snappy_decode, snappy_encode
 
-from . import snappy_decode
+CHUNK = 65536
+
+
+def _selfcheck_payload(seed: int = 0xA1C0) -> bytes:
+    """A 64 KB canary of mixed content: repeated text at varied distances
+    and an incompressible stretch (the same bytes as
+    ``aircompressor_tpu.ops.batch._selfcheck_payload``). A small repetitive
+    canary can pass a kernel that corrupts real chunks. The text is capped
+    so that the random stretch always survives the cut to 64 KB."""
+    rng = np.random.default_rng(seed)
+    words = [rng.integers(32, 127, int(n), dtype=np.uint8)
+             for n in rng.integers(5, 400, 60)]
+    parts: list = []
+    total = 0
+    for i in rng.integers(0, len(words), 400):
+        w = words[int(i)]
+        if total + w.size > 65536 - 8192:
+            break
+        parts.append(w)
+        total += w.size
+    parts.append(rng.integers(0, 256, 8192, dtype=np.uint8))
+    return np.concatenate(parts).tobytes()[:65536]
+
+
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def _pack(blobs: Sequence[bytes], cap: int):
+    B = len(blobs)
+    buf = np.zeros((B, cap), np.uint8)
+    lens = np.zeros(B, np.int32)
+    for i, b in enumerate(blobs):
+        if len(b) > cap:
+            raise ValueError(f"chunk {i} exceeds capacity {cap}")
+        buf[i, : len(b)] = np.frombuffer(b, np.uint8)
+        lens[i] = len(b)
+    return buf, lens
+
+
+@functools.cache
+def _canary() -> tuple[bytes, bytes]:
+    """The canary payload and its Snappy block from the host reference."""
+    payload = _selfcheck_payload()
+    return payload, host_snappy.compress(payload)
 
 
 def to_device_batch(buf: np.ndarray, lens: np.ndarray, device):
     """(B, cap) uint8 and (B,) lengths from numpy to ``device``, as the
-    (uint8 (B, cap), int32 (B,)) tensors the decode takes."""
+    (uint8 (B, cap), int32 (B,)) tensors the kernels take."""
     buf = np.ascontiguousarray(buf)
     lens = np.ascontiguousarray(lens, dtype=np.int32)
     if buf.dtype != np.uint8 or buf.ndim != 2 or lens.shape != buf.shape[:1]:
@@ -32,43 +81,124 @@ def to_device_batch(buf: np.ndarray, lens: np.ndarray, device):
     return (torch.from_numpy(buf).to(device), torch.from_numpy(lens).to(device))
 
 
-class SnappyBatchCodec:
-    """Chunk-parallel Snappy decode of chunks up to ``max_chunk`` bytes."""
+def _rows(out: torch.Tensor, lens: torch.Tensor) -> list[bytes]:
+    """Each row's first ``lens[i]`` bytes, copying to the host only the
+    columns that some row needs."""
+    lens = lens.cpu().numpy()
+    width = int(lens.max()) if lens.size else 0
+    out = out[:, :width].cpu().numpy()
+    return [out[i, :lens[i]].tobytes() for i in range(len(lens))]
 
-    def __init__(self, max_chunk: int = CHUNK, *, device):
+
+class SnappyBatchCodec:
+    """Chunk-parallel Snappy encode and decode of chunks up to ``max_chunk``
+    bytes, on ``device`` (the card by default)."""
+
+    def __init__(self, max_chunk: int = CHUNK, *, device="cuda"):
         if max_chunk > CHUNK:
             raise ValueError("snappy batch chunks are capped at 64KB")
         self.max_chunk = max_chunk
         self.device = torch.device(device)
-        self._checked = False
+        self._decode_checked = False
+        self._encode_checked = False
 
-    def _self_check(self) -> None:
-        payload = _selfcheck_payload()
-        blob = SnappyCompressor.create().compress(payload)
+    def _decode_self_check(self) -> None:
+        payload, blob = _canary()
         out, out_lens, ok = snappy_decode.decode(
             *to_device_batch(*_pack([blob], len(blob)), self.device))
         n = int(out_lens[0])
         if not (bool(ok[0]) and out[0, :n].cpu().numpy().tobytes() == payload):
             raise RuntimeError(
                 f"snappy decode failed its self-check on {self.device}")
-        self._checked = True
+        self._decode_checked = True
+
+    def _encode_self_check(self) -> None:
+        payload, _ = _canary()
+        comp, comp_lens, ok = snappy_encode.encode(
+            *to_device_batch(*_pack([payload], len(payload)), self.device))
+        blob = _rows(comp, comp_lens)[0]
+        if not (bool(ok[0]) and
+                host_snappy.decompress(blob, len(payload)) == payload):
+            raise RuntimeError(
+                f"snappy encode failed its self-check on {self.device}")
+        self._encode_checked = True
+
+    def compress_chunks(self, chunks: Sequence[bytes]) -> list[bytes]:
+        """One Snappy block for each chunk; raises ValueError for a chunk over
+        ``max_chunk`` and RuntimeError if the kernel flags a chunk not ok."""
+        if not chunks:
+            return []
+        for i, c in enumerate(chunks):
+            if len(c) > self.max_chunk:
+                raise ValueError(f"chunk {i} exceeds capacity {self.max_chunk}")
+        if not self._encode_checked:
+            self._encode_self_check()
+        cap = _round_up(max(1, max(len(c) for c in chunks)), 16)
+        comp, comp_lens, ok = snappy_encode.encode(
+            *to_device_batch(*_pack(chunks, cap), self.device))
+        bad = np.nonzero(~ok.cpu().numpy())[0]
+        if bad.size:
+            raise RuntimeError(f"snappy encode overflowed its output on chunk "
+                               f"{int(bad[0])}")
+        return _rows(comp, comp_lens)
 
     def decompress_chunks(self, blobs: Sequence[bytes]) -> list[bytes]:
         """Decode each blob; raises MalformedInputException naming the
         index of the first chunk that is malformed or over ``max_chunk``."""
         if not blobs:
             return []
-        if not self._checked:
-            self._self_check()
+        if not self._decode_checked:
+            self._decode_self_check()
         cap = _round_up(max(1, max(len(b) for b in blobs)), 16)
         comp, comp_lens = to_device_batch(*_pack(blobs, cap), self.device)
         out, out_lens, ok = snappy_decode.decode(comp, comp_lens,
                                                  out_cap=self.max_chunk)
-        ok = ok.cpu().numpy()
-        bad = np.nonzero(~ok)[0]
+        bad = np.nonzero(~ok.cpu().numpy())[0]
         if bad.size:
             raise MalformedInputException(int(bad[0]),
                                           "malformed snappy chunk in batch")
-        out = out.cpu().numpy()
-        out_lens = out_lens.cpu().numpy()
-        return [out[i, :out_lens[i]].tobytes() for i in range(len(blobs))]
+        return _rows(out, out_lens)
+
+
+def snappy_framed_decompress_device(data: bytes, verify_checksums: bool = True,
+                                    *, device="cuda") -> bytes:
+    """Decode an x-snappy-framed stream: the framing walk on the host, every
+    compressed chunk in one batch through the decode kernel, their CRCs in
+    one batched CRC32-C on the device, and the CRCs of uncompressed chunks
+    on the host. A bad compressed chunk or CRC raises
+    MalformedInputException with the chunk's index among the compressed
+    chunks; a bad uncompressed-chunk CRC raises it with index 0, as the JAX
+    function does."""
+    comp_chunks: list[bytes] = []
+    comp_crcs: list[int] = []
+    parts: list[bytes | None] = []
+    plain: list[tuple[bytes, int]] = []
+    for kind, payload, crc in framed.iter_frames(data):
+        if kind == "compressed":
+            comp_chunks.append(payload)
+            comp_crcs.append(crc)
+            parts.append(None)
+        else:
+            plain.append((payload, crc))
+            parts.append(payload)
+    decoded: list[bytes] = []
+    if comp_chunks:
+        cap = _round_up(max(1, max(len(b) for b in comp_chunks)), 16)
+        comp, comp_lens = to_device_batch(*_pack(comp_chunks, cap), device)
+        out, out_lens, ok = snappy_decode.decode(comp, comp_lens, out_cap=CHUNK)
+        okn = ok.cpu().numpy()
+        if not okn.all():
+            raise MalformedInputException(
+                int(np.nonzero(~okn)[0][0]), "malformed snappy framed chunk")
+        if verify_checksums:
+            got = checksum.mask_crc(checksum.crc32c(out, out_lens)).cpu().numpy()
+            bad = np.nonzero(got != np.asarray(comp_crcs, np.int64))[0]
+            if bad.size:
+                raise MalformedInputException(int(bad[0]), "chunk checksum mismatch")
+        decoded = _rows(out, out_lens)
+    if verify_checksums:
+        for payload, crc in plain:
+            if mask_crc(crc32c_raw(payload)) != crc:
+                raise MalformedInputException(0, "uncompressed chunk checksum mismatch")
+    it = iter(decoded)
+    return b"".join(p if p is not None else next(it) for p in parts)

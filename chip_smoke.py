@@ -1,19 +1,29 @@
-"""Drive the port's main path once on an NVIDIA GPU and check every result.
+"""Drive the port's paths once on an NVIDIA GPU and check every result.
 
 Run from the root of a checkout, with one CUDA card visible:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels of ``aircompressor_tpu_torch`` from ``csrc/``,
-holds each kernel against its plain PyTorch version on the card, decodes a
-generated 16 MB corpus of 64 KB Snappy chunks through
-``SnappyBatchCodec.decompress_chunks`` and, tiled 16 times on the device
-(4096 chunks, 256 MB), through the decode and xxh64 kernels, and checks
-every byte and hash against the host tiers. It prints the card's name and
-power limit, kernel and plain times, then one JSON line of per-kernel
-results, and last ``{"ok": true, "device": {...}}``. Any failed check
-raises, so the exit code is not 0 and that last line is not printed. With
-no CUDA device it fails at once; there is no CPU path. It imports no JAX.
+It builds the CUDA kernels of ``aircompressor_tpu_torch`` from ``csrc/`` and
+holds each kernel against its plain PyTorch version on the card. Then it
+drives three paths over a generated corpus of 256 chunks of 64 KB (16 MB),
+each with the kernels' launch counts set to 0 just before it and read just
+after:
+
+- compress: ``SnappyBatchCodec.compress_chunks`` on the corpus, and the
+  corpus tiled 16 times on the device (4096 chunks, 256 MB) through the
+  encode kernel;
+- decode: ``decompress_chunks`` on the corpus's blocks, and the tiled
+  blocks through the decode and xxh64 kernels (``entry.decode_and_hash``);
+- framed: an x-snappy-framed stream of the corpus through
+  ``snappy_framed_decompress_device``.
+
+Every byte and hash is checked against the originals and the port's host
+reference codecs. It prints the card's name and power limit, kernel and
+plain times, then one JSON line of per-kernel results, and last ``{"ok":
+true, "device": {...}}``. Any failed check raises, so the exit code is not
+0 and that last line is not printed. With no CUDA device it fails at once;
+there is no CPU path. It imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -28,6 +38,12 @@ import torch
 CHUNK = 65536
 N_CHUNKS = 256  # the generated corpus: 256 chunks of 64 KB, 16 MB
 SUSTAIN = 16  # device-side tiling of the corpus: 4096 chunks, 256 MB
+ENC_CUT = 8192  # encode_plain steps once per position: kernel-vs-plain cut
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
+RATIO_LIMIT = 1.03  # encode size against the host reference compressor
+BAD_CRC_BLOCK = 10  # the framed block whose CRC is flipped ...
+BAD_CRC_INDEX = 9  # ... and its index among the compressed chunks (block 4
+                   # is stored uncompressed), which the decode must report
 
 
 def synthetic_cases() -> list[tuple[str, bytes]]:
@@ -60,12 +76,42 @@ def malformed_cases(compress) -> list[bytes]:
 def generated_corpus() -> list[bytes]:
     """256 distinct 64 KB chunks: runs, periods and a byte ramp, then mixed
     text at varied distances with an incompressible stretch."""
-    from aircompressor_tpu.ops.batch import _selfcheck_payload
+    from aircompressor_tpu_torch.ops.batch import _selfcheck_payload
 
     special = [bytes(CHUNK), b"\x01" * CHUNK, b"ab" * (CHUNK // 2),
                bytes(i & 0xFF for i in range(CHUNK))]
     return special + [_selfcheck_payload(seed=i)
                       for i in range(N_CHUNKS - len(special))]
+
+
+def backward_cap_case() -> bytes:
+    """2 KB of random bytes whose tail repeats an earlier stretch: the skip
+    has grown by then, so the first hit lies far into the repeat and
+    backward extension stops at its 127-byte cap."""
+    noise = np.random.default_rng(5).integers(0, 256, 2048, dtype=np.uint8).tobytes()
+    return (noise[:900] + noise[487:])[:2048]
+
+
+def encode_cases() -> list[bytes]:
+    """The encode comparison batch: the synthetic cases, four canary windows
+    across the text/random boundary, each cut to ENC_CUT bytes, and the
+    backward-extension cap case."""
+    from aircompressor_tpu_torch.ops.batch import _selfcheck_payload
+
+    cases = [c[:ENC_CUT] for _, c in synthetic_cases()] + [backward_cap_case()]
+    for seed in (0xA1C0, 1, 2, 3):
+        payload = _selfcheck_payload(seed)
+        cases.append(payload[-ENC_CUT - ENC_CUT // 2:-ENC_CUT // 2])
+    return cases
+
+
+def frame_spans(stream: bytes, header_len: int) -> list[tuple[int, int]]:
+    """(kind, offset) of every chunk of an x-snappy-framed stream."""
+    spans, pos = [], header_len
+    while pos < len(stream):
+        spans.append((stream[pos], pos))
+        pos += 4 + int.from_bytes(stream[pos + 1:pos + 4], "little")
+    return spans
 
 
 def require(cond, what: str) -> None:
@@ -97,6 +143,15 @@ def paired_ms(kernel, plain, reps_kernel: int, reps_plain: int):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def bound_ms(read_bytes: int, write_bytes: int) -> float:
+    """The least time for the card to move these bytes once each."""
+    return (read_bytes + write_bytes) / HBM_BYTES_PER_S * 1e3
+
+
+def gbps(nbytes, ms):
+    return nbytes / ms / 1e6
+
+
 def main() -> None:
     print("== device", flush=True)
     if not torch.cuda.is_available():
@@ -109,14 +164,16 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
-    from aircompressor_tpu import xxhash as host_xxhash
-    from aircompressor_tpu.ops.batch import _pack, _round_up, _selfcheck_payload
-    from aircompressor_tpu.snappy import SnappyCompressor, SnappyDecompressor
-    from aircompressor_tpu.xxhash import _scalar
     from aircompressor_tpu_torch import _build
     from aircompressor_tpu_torch.entry import _sample_batch, decode_and_hash, entry
-    from aircompressor_tpu_torch.ops import snappy_decode, xxhash
-    from aircompressor_tpu_torch.ops.batch import SnappyBatchCodec, to_device_batch
+    from aircompressor_tpu_torch.errors import MalformedInputException
+    from aircompressor_tpu_torch.host import framed
+    from aircompressor_tpu_torch.host import snappy as host_snappy
+    from aircompressor_tpu_torch.host.xxhash import xxh64 as host_xxh64
+    from aircompressor_tpu_torch.ops import checksum, snappy_decode, snappy_encode, xxhash
+    from aircompressor_tpu_torch.ops.batch import (
+        SnappyBatchCodec, _pack, _round_up, _selfcheck_payload,
+        snappy_framed_decompress_device, to_device_batch)
 
     print("== build", flush=True)
     t0 = time.perf_counter()
@@ -129,7 +186,7 @@ def main() -> None:
             print("  " + line.strip())
 
     print("== kernels against plain on the card", flush=True)
-    compress = SnappyCompressor.create().compress
+    compress = host_snappy.compress
     cases = [c for _, c in synthetic_cases()]
     cases += [c[:CHUNK] for c in cases if len(c) > CHUNK]
     cases += [_selfcheck_payload(seed) for seed in (0xA1C0, 1, 2, 3)]
@@ -163,51 +220,113 @@ def main() -> None:
         k_h = [v & (2**64 - 1) for v in xxhash.xxh64(data, lens).tolist()]
         p_h = [v & (2**64 - 1) for v in xxhash.xxh64_plain(data, lens).tolist()]
         host = data.cpu().numpy()
-        s_h = [_scalar.xxh64(host[i, :n].tobytes()) for i, n in enumerate(lens.tolist())]
+        s_h = [host_xxh64(host[i, :n]) for i, n in enumerate(lens.tolist())]
         xxh_err = max([xxh_err] + [abs(a - b) for a, b in zip(k_h, p_h)])
         require(k_h == p_h == s_h, f"xxh64 kernel == plain == scalar at L={width}")
     print(f"xxh64: {2 * len(grid)} streams, kernel == plain == scalar, "
           f"max_abs_err {xxh_err}")
 
-    codec = SnappyBatchCodec(device=dev)  # its canary runs in this phase
+    enc_cases = encode_cases()
+    enc_buf, enc_lens = _pack(enc_cases, ENC_CUT)
+    enc_in = to_device_batch(enc_buf, enc_lens, dev)
+    k_comp, k_clens, k_eok = snappy_encode.encode(*enc_in)
+    p_comp, p_clens, p_eok = snappy_encode.encode_plain(*enc_in)
+    torch.cuda.synchronize()
+    require(torch.equal(k_eok, p_eok) and bool(k_eok.all()), "encode ok flags equal plain")
+    require(torch.equal(k_clens, p_clens), "encode comp_lens equal plain")
+    encode_err = int((k_comp.int() - p_comp.int()).abs().max())
+    require(encode_err == 0, "encode bytes equal plain")
+    for i, c in enumerate(enc_cases):
+        blob = k_comp[i, :int(k_clens[i])].cpu().numpy().tobytes()
+        require(host_snappy.decompress(blob, len(c)) == c,
+                f"encode case {i} decodes to its original on the host")
+    noisy = enc_buf.copy()
+    for i, n in enumerate(enc_lens):
+        noisy[i, n:] = rng.integers(0, 256, ENC_CUT - n, dtype=np.uint8)
+    n_comp, n_clens, _ = snappy_encode.encode(*to_device_batch(noisy, enc_lens, dev))
+    require(torch.equal(n_comp, k_comp) and torch.equal(n_clens, k_clens),
+            "bytes past each length do not change the encode")
+    print(f"snappy encode: {len(enc_cases)} chunks of <= {ENC_CUT} B, kernel == "
+          f"plain, max_abs_err {encode_err}, host decoder round trip ok")
+
+    codec = SnappyBatchCodec()  # the card by default; its canaries run here
     short = [c for c in cases if len(c) <= CHUNK]
     require(codec.decompress_chunks([compress(c) for c in short]) == short,
-            "SnappyBatchCodec round trip of the cases")
-    e_step, e_inputs = entry(dev)
+            "SnappyBatchCodec decode round trip of the cases")
+    require(codec.decompress_chunks(codec.compress_chunks(short)) == short,
+            "SnappyBatchCodec compress round trip of the cases")
+    e_step, e_inputs = entry()
     c_step, c_inputs = entry("cpu")
+    require(e_inputs[0].device.type == "cuda", "entry() runs on the card by default")
     e_res, c_res = e_step(*e_inputs), c_step(*c_inputs)
     for key in ("out", "out_lens", "ok", "xxh64"):
         require(torch.equal(e_res[key].cpu(), c_res[key]), f"entry {key} on card == CPU")
-    print("SnappyBatchCodec self-check and round trip ok; entry() on card == CPU")
+    print("SnappyBatchCodec self-checks and round trips ok; entry() on card == CPU")
 
-    print("== main path at real size (generated corpus)", flush=True)
+    print("== compress path at real size (generated corpus)", flush=True)
     corpus = generated_corpus()
+    raw, raw_lens = to_device_batch(*_pack(corpus, CHUNK), dev)
+    big_raw, big_raw_lens = raw.repeat(SUSTAIN, 1), raw_lens.repeat(SUSTAIN)
+    snappy_encode.launches = snappy_encode.rows = 0
     t0 = time.perf_counter()
-    blobs = [compress(c) for c in corpus]
-    print(f"corpus: generated, {len(corpus)} chunks, {sum(map(len, corpus))} B "
-          f"-> {sum(map(len, blobs))} B compressed on the host in "
-          f"{time.perf_counter() - t0:.2f} s")
-    want_hash = [host_xxhash.xxh64(c) for c in corpus]
-    sample_buf, sample_lens, _ = _sample_batch(8)
-    sample_raw = [SnappyDecompressor.create().decompress(
-        sample_buf[i, :n].tobytes(), CHUNK) for i, n in enumerate(sample_lens)]
+    blobs = codec.compress_chunks(corpus)
+    t_compress = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    big_comp, big_comp_lens, big_ok = snappy_encode.encode(big_raw, big_raw_lens)
+    torch.cuda.synchronize()
+    t_big_enc = time.perf_counter() - t0
+    enc_launches, enc_rows = snappy_encode.launches, snappy_encode.rows
 
+    n_enc = len(corpus) + big_raw.shape[0]
+    require(enc_rows == n_enc, f"every chunk went through the encode kernel: "
+            f"{enc_rows}/{n_enc}")
+    require(bool(big_ok.all()), "every tiled chunk encodes ok")
+    require(big_comp_lens.tolist() == [len(b) for b in blobs] * SUSTAIN,
+            "tiled comp_lens equal compress_chunks' lengths")
+    require(torch.equal(big_comp, big_comp[:N_CHUNKS].repeat(SUSTAIN, 1)),
+            "every tile encodes to the same bytes")
+    width = max(map(len, blobs))
+    require(big_comp[:N_CHUNKS, :width].cpu().numpy().tobytes() ==
+            b"".join(b.ljust(width, b"\0") for b in blobs),
+            "the first tile equals compress_chunks' blocks")
+    for i in range(0, N_CHUNKS, N_CHUNKS // 8):
+        require(host_snappy.decompress(blobs[i], CHUNK) == corpus[i],
+                f"corpus block {i} decodes to its original on the host")
+    t0 = time.perf_counter()
+    host_size = sum(len(compress(c)) for c in corpus[:16])
+    t_host16 = time.perf_counter() - t0
+    ratio = sum(map(len, blobs[:16])) / host_size
+    require(ratio <= RATIO_LIMIT, f"encode size / host reference size {ratio} "
+            f"<= {RATIO_LIMIT}")
+    comp_bytes = sum(map(len, blobs))
+    print(f"compress_chunks: {len(corpus)} chunks, {sum(map(len, corpus))} B -> "
+          f"{comp_bytes} B in {t_compress:.3f} s (host clock, staging and copies "
+          f"included)")
+    print(f"tiled x{SUSTAIN}: {big_raw.shape[0]} chunks encoded in {t_big_enc:.3f} s "
+          f"(host clock, first call)")
+    print(f"size against the host reference compressor on 16 chunks: {ratio:.6f} "
+          f"(limit {RATIO_LIMIT}; host compressor {t_host16:.2f} s)")
+    print(f"encode launches {enc_launches}, {enc_rows} of {n_enc} chunks through "
+          f"the encode kernel")
+
+    print("== decode path at real size (the encoded corpus)", flush=True)
+    want_hash = [host_xxh64(c) for c in corpus]
+    sample_buf, sample_lens, _ = _sample_batch(8)
+    sample_raw = [host_snappy.decompress(sample_buf[i, :n].tobytes(), CHUNK)
+                  for i, n in enumerate(sample_lens)]
     snappy_decode.launches = snappy_decode.rows = xxhash.launches = 0
     t0 = time.perf_counter()
     decoded = codec.decompress_chunks(blobs)
     t_codec = time.perf_counter() - t0
-    comp, comp_lens = to_device_batch(
-        *_pack(blobs, _round_up(max(map(len, blobs)), 16)), dev)
-    big, big_lens = comp.repeat(SUSTAIN, 1), comp_lens.repeat(SUSTAIN)
     t0 = time.perf_counter()
-    res = decode_and_hash(big, big_lens)
+    res = decode_and_hash(big_comp, big_comp_lens)
     torch.cuda.synchronize()
     t_big = time.perf_counter() - t0
     e_res = e_step(*e_inputs)
     torch.cuda.synchronize()
     counts = {"snappy_decode": snappy_decode.launches, "xxh64": xxhash.launches}
     rows = snappy_decode.rows
-    n_in = len(blobs) + big.shape[0] + e_inputs[0].shape[0]
+    n_in = len(blobs) + big_comp.shape[0] + e_inputs[0].shape[0]
 
     require(decoded == corpus, "decompress_chunks returns every original")
     require(bool(res["ok"].all()), "every tiled chunk decodes ok")
@@ -222,19 +341,64 @@ def main() -> None:
     require(got_hash == want_hash * SUSTAIN, "every xxh64 equals the host's")
     require(bool(e_res["ok"].all()) and
             [v & (2**64 - 1) for v in e_res["xxh64"].tolist()] ==
-            [host_xxhash.xxh64(r) for r in sample_raw], "entry() hashes equal the host's")
+            [host_xxh64(r) for r in sample_raw], "entry() hashes equal the host's")
     require(all(n > 0 for n in counts.values()), f"both kernels launched: {counts}")
     device_fraction = rows / n_in
     require(device_fraction == 1.0, f"every chunk decoded on the device: {rows}/{n_in}")
     decoded_bytes = int(res["out_lens"].sum())
     print(f"decompress_chunks: {len(blobs)} chunks in {t_codec:.3f} s (host clock, "
           f"staging and copies included)")
-    print(f"tiled x{SUSTAIN}: {big.shape[0]} chunks, {decoded_bytes} B decoded and "
-          f"hashed in {t_big:.3f} s (host clock, first call)")
+    print(f"tiled x{SUSTAIN}: {big_comp.shape[0]} chunks, {decoded_bytes} B decoded "
+          f"and hashed in {t_big:.3f} s (host clock, first call)")
     print(f"device_fraction {device_fraction} ({rows} of {n_in} chunks through the "
           f"decode kernel, {n_in - rows} on the host); launches {counts}")
 
+    print("== framed path (x-snappy-framed stream of the corpus)", flush=True)
+    noise = np.random.default_rng(7).integers(0, 256, CHUNK, dtype=np.uint8).tobytes()
+    data = b"".join(corpus[:4]) + noise + b"".join(corpus[4:])
+    stream = framed.compress_framed(data, codec.compress_chunks)
+    head = len(framed.HEADER)
+    stream = (stream[:head] + framed.chunk(framed.PADDING_CHUNK, bytes(100))
+              + stream[head:])
+    spans = frame_spans(stream, head)
+    kinds = [k for k, _ in spans]
+    require(kinds.count(framed.UNCOMPRESSED_CHUNK) == 1 and
+            kinds.count(framed.PADDING_CHUNK) == 1 and
+            kinds.index(framed.UNCOMPRESSED_CHUNK) == 5,
+            "the stream holds one padding chunk and one stored chunk (block 4)")
+    snappy_decode.launches = 0
+    t0 = time.perf_counter()
+    got = snappy_framed_decompress_device(stream, device=dev)
+    t_framed_first = time.perf_counter() - t0
+    framed_launches = snappy_decode.launches
+    require(got == data, "the framed stream decodes to the corpus")
+    require(framed_launches > 0, "the framed decode launched the decode kernel")
+    pos = spans[1 + BAD_CRC_BLOCK][1] + 4  # +1: the padding chunk comes first
+    bad = stream[:pos] + bytes([stream[pos] ^ 1]) + stream[pos + 1:]
+    try:
+        snappy_framed_decompress_device(bad, device=dev)
+        raise RuntimeError("check failed: a flipped CRC raises")
+    except MalformedInputException as e:
+        require(e.offset == BAD_CRC_INDEX,
+                f"a flipped CRC reports compressed chunk {BAD_CRC_INDEX}, got {e.offset}")
+    t0 = time.perf_counter()
+    for _ in range(3):
+        snappy_framed_decompress_device(stream, device=dev)
+    t_framed = (time.perf_counter() - t0) / 3
+    t0 = time.perf_counter()  # the host part alone: frame walk and packing
+    payloads = [p for kind, p, _ in framed.iter_frames(stream) if kind == "compressed"]
+    _pack(payloads, _round_up(max(map(len, payloads)), 16))
+    t_walk = time.perf_counter() - t0
+    print(f"framed: {len(stream)} B stream, {len(data)} B out, decode launches "
+          f"{framed_launches}; flipped CRC -> MalformedInputException at "
+          f"{BAD_CRC_INDEX}; first call {t_framed_first:.3f} s, then "
+          f"{t_framed:.4f} s a call (host clock, mean of 3; "
+          f"{gbps(len(data), t_framed * 1e3):.3f} GB/s); of which frame walk "
+          f"and packing {t_walk:.4f} s")
+
     print("== times (CUDA events)", flush=True)
+    comp, comp_lens = to_device_batch(
+        *_pack(blobs, _round_up(max(map(len, blobs)), 16)), dev)
     out256, lens256 = res["out"][:N_CHUNKS].contiguous(), res["out_lens"][:N_CHUNKS]
     dec_ms, dec_plain_ms = paired_ms(
         lambda: snappy_decode.decode(comp, comp_lens),
@@ -242,41 +406,83 @@ def main() -> None:
     xxh_ms, xxh_plain_ms = paired_ms(
         lambda: xxhash.xxh64(out256, lens256),
         lambda: xxhash.xxh64_plain(out256, lens256), 20, 2)
+    enc_ms, enc_plain_ms = paired_ms(
+        lambda: snappy_encode.encode(*enc_in),
+        lambda: snappy_encode.encode_plain(*enc_in), 20, 1)
     big_out, big_out_lens = res["out"], res["out_lens"]
-    dec_big_ms = time_ms(lambda: snappy_decode.decode(big, big_lens), 5)
+    dec_big_ms = time_ms(lambda: snappy_decode.decode(big_comp, big_comp_lens), 5)
     xxh_big_ms = time_ms(lambda: xxhash.xxh64(big_out, big_out_lens), 10)
-    small_bytes = int(lens256.sum())
+    enc256_ms = time_ms(lambda: snappy_encode.encode(raw, raw_lens), 5)
+    enc_big_ms = time_ms(lambda: snappy_encode.encode(big_raw, big_raw_lens), 3)
+    crc_ms = time_ms(lambda: checksum.crc32c(out256, lens256), 5)
+    raw256 = sum(map(len, corpus))  # the canary chunks fall short of 64 KB
+    raw_big = raw256 * SUSTAIN
+    enc_in_bytes = int(enc_lens.sum())
+    comp_big_bytes = int(big_comp_lens.sum())
 
-    def gbps(nbytes, ms):
-        return nbytes / ms / 1e6
+    # Bounds: each input byte the function needs read once, each output
+    # byte written once (the zero tails of out and comp included), at the
+    # card's memory rate. These codecs do no floating-point work.
+    def enc_bound(in_bytes, b):
+        return bound_ms(in_bytes + 4 * b, b * snappy_encode.OUT_CAP + 5 * b)
+
+    def dec_bound(comp_bytes, b):
+        return bound_ms(comp_bytes + 4 * b, b * CHUNK + 5 * b)
+
+    def xxh_bound(in_bytes, b):
+        return bound_ms(in_bytes + 4 * b, 8 * b)
 
     print(f"card: {card}")
-    print(f"snappy decode, {N_CHUNKS} chunks ({small_bytes} B): kernel {dec_ms:.4f} ms "
-          f"({gbps(small_bytes, dec_ms):.3f} GB/s), plain {dec_plain_ms:.4f} ms "
-          f"({gbps(small_bytes, dec_plain_ms):.3f} GB/s)")
+    print(f"snappy encode, {len(enc_cases)} chunks ({enc_in_bytes} B in): kernel "
+          f"{enc_ms:.4f} ms, plain {enc_plain_ms:.4f} ms")
+    print(f"snappy encode, {N_CHUNKS} chunks ({raw256} B in): kernel {enc256_ms:.4f} ms "
+          f"({gbps(raw256, enc256_ms):.3f} GB/s in)")
+    print(f"snappy encode, {big_raw.shape[0]} chunks ({raw_big} B in): kernel "
+          f"{enc_big_ms:.4f} ms ({gbps(raw_big, enc_big_ms):.3f} GB/s in)")
+    print(f"snappy decode, {N_CHUNKS} chunks ({raw256} B out): kernel {dec_ms:.4f} ms "
+          f"({gbps(raw256, dec_ms):.3f} GB/s), plain {dec_plain_ms:.4f} ms "
+          f"({gbps(raw256, dec_plain_ms):.3f} GB/s)")
     print(f"xxh64, {N_CHUNKS} chunks: kernel {xxh_ms:.4f} ms "
-          f"({gbps(small_bytes, xxh_ms):.3f} GB/s), plain {xxh_plain_ms:.4f} ms "
-          f"({gbps(small_bytes, xxh_plain_ms):.3f} GB/s)")
-    print(f"snappy decode, {big.shape[0]} chunks ({decoded_bytes} B): kernel "
+          f"({gbps(raw256, xxh_ms):.3f} GB/s), plain {xxh_plain_ms:.4f} ms "
+          f"({gbps(raw256, xxh_plain_ms):.3f} GB/s)")
+    print(f"snappy decode, {big_comp.shape[0]} chunks ({decoded_bytes} B out): kernel "
           f"{dec_big_ms:.4f} ms ({gbps(decoded_bytes, dec_big_ms):.3f} GB/s decoded)")
-    print(f"xxh64, {big.shape[0]} chunks: kernel {xxh_big_ms:.4f} ms "
+    print(f"xxh64, {big_comp.shape[0]} chunks: kernel {xxh_big_ms:.4f} ms "
           f"({gbps(decoded_bytes, xxh_big_ms):.3f} GB/s hashed)")
-    print(f"decode + xxh64, {big.shape[0]} chunks: "
+    print(f"decode + xxh64, {big_comp.shape[0]} chunks: "
           f"{gbps(decoded_bytes, dec_big_ms + xxh_big_ms):.3f} GB/s")
+    print(f"crc32c (plain tensor ops), {N_CHUNKS} chunks: {crc_ms:.4f} ms "
+          f"({gbps(raw256, crc_ms):.3f} GB/s)")
 
     kernels = [
         {"name": "snappy_decode", "route": "cuda",
          "source": "aircompressor_tpu_torch/csrc/snappy_decode.cu",
          "replaces": "aircompressor_tpu/ops/snappy_pallas_w.py:70",
          "launches": counts["snappy_decode"], "max_abs_err": decode_err,
-         "ms": dec_ms, "plain_ms": dec_plain_ms, "chunks": N_CHUNKS,
-         "tiled_chunks": big.shape[0], "tiled_ms": dec_big_ms},
+         "ms": dec_ms, "plain_ms": dec_plain_ms,
+         "bound_ms": dec_bound(int(comp_lens.sum()), N_CHUNKS), "bound_by": "bytes",
+         "library_ms": None, "batch": f"{N_CHUNKS} chunks",
+         "tiled_chunks": big_comp.shape[0], "tiled_ms": dec_big_ms,
+         "tiled_bound_ms": dec_bound(comp_big_bytes, big_comp.shape[0])},
         {"name": "xxh64", "route": "cuda",
          "source": "aircompressor_tpu_torch/csrc/xxh64.cu",
          "replaces": "aircompressor_tpu/ops/xxhash_pallas.py:40",
          "launches": counts["xxh64"], "max_abs_err": xxh_err,
-         "ms": xxh_ms, "plain_ms": xxh_plain_ms, "chunks": N_CHUNKS,
-         "tiled_chunks": big.shape[0], "tiled_ms": xxh_big_ms},
+         "ms": xxh_ms, "plain_ms": xxh_plain_ms,
+         "bound_ms": xxh_bound(raw256, N_CHUNKS), "bound_by": "bytes",
+         "library_ms": None, "batch": f"{N_CHUNKS} chunks",
+         "tiled_chunks": big_comp.shape[0], "tiled_ms": xxh_big_ms,
+         "tiled_bound_ms": xxh_bound(decoded_bytes, big_comp.shape[0])},
+        {"name": "snappy_encode", "route": "cuda",
+         "source": "aircompressor_tpu_torch/csrc/snappy_encode.cu",
+         "replaces": "aircompressor_tpu/ops/snappy_encode_pallas.py:74",
+         "launches": enc_launches, "max_abs_err": encode_err,
+         "ms": enc_ms, "plain_ms": enc_plain_ms,
+         "bound_ms": enc_bound(enc_in_bytes, len(enc_cases)), "bound_by": "bytes",
+         "library_ms": None, "batch": f"{len(enc_cases)} chunks of <= {ENC_CUT} B",
+         "chunks_ms": enc256_ms, "chunks_bound_ms": enc_bound(raw256, N_CHUNKS),
+         "tiled_chunks": big_raw.shape[0], "tiled_ms": enc_big_ms,
+         "tiled_bound_ms": enc_bound(raw_big, big_raw.shape[0])},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

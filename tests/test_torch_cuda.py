@@ -2,18 +2,24 @@
 
 Marked ``cuda``: every test skips where no CUDA device is present. On a
 machine with one, run them with ``JAX_PLATFORMS=cpu python -m pytest -m cuda
-tests/test_torch_cuda.py``. Integer codecs: the tolerance is 0.
+tests/test_torch_cuda.py``. Integer codecs: the tolerance is 0. Inputs and
+oracles come from the port's own host copies, so the file runs where the
+JAX package cannot.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from aircompressor_tpu.ops.batch import _pack, _selfcheck_payload
-from aircompressor_tpu.snappy import SnappyCompressor
-from aircompressor_tpu.xxhash import _scalar
-from aircompressor_tpu_torch.ops import snappy_decode, xxhash
-from aircompressor_tpu_torch.ops.batch import SnappyBatchCodec, to_device_batch
+from aircompressor_tpu_torch.errors import MalformedInputException
+from aircompressor_tpu_torch.host import framed
+from aircompressor_tpu_torch.host import snappy as host_snappy
+from aircompressor_tpu_torch.host.crc32c import crc32c_raw
+from aircompressor_tpu_torch.host.xxhash import xxh64 as host_xxh64
+from aircompressor_tpu_torch.ops import checksum, snappy_decode, snappy_encode, xxhash
+from aircompressor_tpu_torch.ops.batch import (
+    SnappyBatchCodec, _pack, _selfcheck_payload, snappy_framed_decompress_device,
+    to_device_batch)
 
 pytestmark = pytest.mark.cuda
 
@@ -26,9 +32,8 @@ def device():
 
 
 def _blobs(synthetic):
-    compress = SnappyCompressor.create().compress
     raws = [c for _, c in synthetic] + [_selfcheck_payload(s) for s in (1, 2)]
-    blobs = [compress(r) for r in raws]
+    blobs = [host_snappy.compress(r) for r in raws]
     return raws, blobs + [blobs[-1][: len(blobs[-1]) // 2],
                           b"\x08\x0cabcd\x0f\x04\x00\x00\x01"]
 
@@ -61,7 +66,7 @@ def test_xxh64_kernel_equals_plain_and_scalar(device, width):
     assert xxhash.launches == before + 1
     assert torch.equal(got, xxhash.xxh64_plain(data, lengths))
     assert [v & (2**64 - 1) for v in got.tolist()] == [
-        _scalar.xxh64(host[i, :min(max(n, 0), width)].tobytes())
+        host_xxh64(host[i, :min(max(n, 0), width)].tobytes())
         for i, n in enumerate(lens)]
 
 
@@ -70,3 +75,67 @@ def test_codec_round_trip_on_device(device, synthetic):
     short = [(r, b) for r, b in zip(raws, blobs) if len(r) <= 65536]
     codec = SnappyBatchCodec(device=device)
     assert codec.decompress_chunks([b for _, b in short]) == [r for r, _ in short]
+
+
+def _encode_batch(synthetic, cut: int):
+    rng = np.random.default_rng(cut)
+    noise = np.random.default_rng(5).integers(0, 256, 2048, dtype=np.uint8).tobytes()
+    raws = [c[:cut] for _, c in synthetic] + [
+        _selfcheck_payload(s)[-cut:] for s in (1, 2)] + [
+        (noise[:900] + noise[487:])[:2048]]  # backward extension hits its cap
+    buf, lens = _pack(raws, cut)
+    noisy = buf.copy()
+    for i, n in enumerate(lens):
+        noisy[i, n:] = rng.integers(0, 256, cut - n, dtype=np.uint8)
+    return raws, buf, noisy, lens
+
+
+@pytest.mark.parametrize("cut", [2048, 6000])
+def test_encode_kernel_equals_plain(device, synthetic, cut):
+    raws, buf, noisy, lens = _encode_batch(synthetic, cut)
+    data, lengths = to_device_batch(buf, lens, device)
+    before = snappy_encode.launches
+    got = snappy_encode.encode(data, lengths)
+    assert snappy_encode.launches == before + 1
+    want = snappy_encode.encode_plain(data, lengths)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert torch.equal(g, w)
+    again = snappy_encode.encode(*to_device_batch(noisy, lens, device))
+    for g, a in zip(got, again):  # bytes past each length change nothing
+        assert torch.equal(g, a)
+    comp, comp_lens, ok = (t.cpu().numpy() for t in got)
+    assert ok.all()
+    for i, r in enumerate(raws):
+        assert host_snappy.decompress(comp[i, :comp_lens[i]].tobytes(), len(r)) == r
+
+
+def test_codec_compress_round_trip_on_device(device, synthetic):
+    raws = [c for _, c in synthetic if len(c) <= 65536] + [
+        _selfcheck_payload(s) for s in (1, 2)]
+    codec = SnappyBatchCodec(device=device)
+    before = snappy_encode.rows
+    blobs = codec.compress_chunks(raws)
+    assert snappy_encode.rows - before >= len(raws)
+    assert codec.decompress_chunks(blobs) == raws
+    assert [host_snappy.decompress(b, 65536) for b in blobs[-2:]] == raws[-2:]
+
+
+def test_crc32c_on_device_equals_host(device):
+    rng = np.random.default_rng(3)
+    lens = np.array(list(range(40)) + [255, 256, 1000, 4096], np.int32)
+    host = rng.integers(0, 256, (len(lens), 4096), dtype=np.uint8)
+    got = checksum.crc32c(*to_device_batch(host, lens, device)).cpu().tolist()
+    assert got == [crc32c_raw(host[i, :n]) for i, n in enumerate(lens)]
+
+
+def test_framed_decompress_on_device(device, synthetic):
+    noise = np.random.default_rng(9).integers(0, 256, 65536, dtype=np.uint8)
+    data = b"".join(c for _, c in synthetic) + noise.tobytes()
+    stream = framed.compress_framed(data)
+    assert snappy_framed_decompress_device(stream, device=device) == data
+    head = len(framed.HEADER) + 4  # the CRC of the first chunk
+    bad = stream[:head] + bytes([stream[head] ^ 1]) + stream[head + 1:]
+    with pytest.raises(MalformedInputException) as exc:
+        snappy_framed_decompress_device(bad, device=device)
+    assert exc.value.offset == 0

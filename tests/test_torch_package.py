@@ -1,4 +1,5 @@
-"""The port stands without JAX and without a CPU fallback for the card.
+"""The port stands without JAX, without the JAX package and without a CPU
+fallback for the card.
 
 Nothing here builds a kernel: the package and ``chip_smoke.py`` are only
 imported, and ``chip_smoke.py`` is run where there is no CUDA device.
@@ -9,12 +10,14 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "aircompressor_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
+BLOCKED = ("jax", "aircompressor_tpu")
 
 
 def _run(args, **kw):
@@ -24,23 +27,78 @@ def _run(args, **kw):
 
 
 def test_port_imports_with_jax_blocked():
-    code = ("import sys; sys.modules['jax'] = None\n"
+    """With jax and the JAX package blocked, the port and every one of its
+    modules import, and neither blocked name is loaded."""
+    modules = sorted(
+        "aircompressor_tpu_torch." + ".".join(p.relative_to(
+            ROOT / "aircompressor_tpu_torch").with_suffix("").parts)
+        for p in PORT_FILES[:-1] if p.name != "__init__.py")
+    code = ("import importlib, sys\n"
+            f"for name in {BLOCKED!r}: sys.modules[name] = None\n"
             "import aircompressor_tpu_torch, chip_smoke\n"
-            "import aircompressor_tpu_torch.entry, aircompressor_tpu_torch.ops.batch\n"
+            f"for m in {modules!r}: importlib.import_module(m)\n"
             "assert aircompressor_tpu_torch.ops.xxhash.launches == 0\n"
-            "loaded = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
-            "assert loaded == ['jax'] and sys.modules['jax'] is None, loaded\n")
+            "loaded = sorted(m for m in sys.modules\n"
+            f"                if m.split('.')[0] in {BLOCKED!r})\n"
+            f"assert loaded == sorted({BLOCKED!r}), loaded\n"
+            f"assert all(sys.modules[m] is None for m in {BLOCKED!r})\n")
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stderr
 
 
-def test_port_sources_name_no_jax():
+def _imported_roots(line: str) -> list[str]:
+    """The top-level packages an ``import``/``from`` line names."""
+    words = line.split()
+    if words[:1] == ["from"] and len(words) > 1:
+        return [words[1].split(".")[0]]
+    if words[:1] == ["import"]:
+        return [clause.split()[0].split(".")[0]
+                for clause in line[len("import"):].split(",") if clause.strip()]
+    return []
+
+
+def _assert_sources_never_import(package: str) -> None:
     for path in PORT_FILES:
         for line in path.read_text().splitlines():
-            words = line.split()
-            assert not (words[:2] == ["import", "jax"]
-                        or (words[:1] == ["from"] and words[1:2]
-                            and words[1].split(".")[0] == "jax")), (path, line)
+            assert package not in _imported_roots(line.strip()), (path, line)
+
+
+def test_port_sources_name_no_jax():
+    _assert_sources_never_import("jax")
+
+
+def test_port_sources_name_no_jax_package():
+    """No module of the port and no line of chip_smoke.py imports
+    ``aircompressor_tpu`` (``aircompressor_tpu_torch`` is the port)."""
+    _assert_sources_never_import("aircompressor_tpu")
+
+
+def test_source_scan_sees_package_imports():
+    assert _imported_roots("from aircompressor_tpu.ops.batch import _pack") == [
+        "aircompressor_tpu"]
+    assert _imported_roots("import aircompressor_tpu.snappy as s, numpy") == [
+        "aircompressor_tpu", "numpy"]
+    assert _imported_roots("from aircompressor_tpu_torch.ops import batch") == [
+        "aircompressor_tpu_torch"]
+    assert _imported_roots("from ..errors import MalformedInputException") == [""]
+
+
+def test_port_host_helpers_equal_the_jax_package():
+    """The port's copies of the JAX package's numpy helpers give the same
+    arrays: the canary payload, the batch packing and the entry's batch."""
+    import __graft_entry__
+    from aircompressor_tpu.ops import batch as jax_batch
+    from aircompressor_tpu_torch import entry as port_entry
+    from aircompressor_tpu_torch.ops import batch as port_batch
+
+    for seed in (0xA1C0, 0, 7):
+        assert port_batch._selfcheck_payload(seed) == jax_batch._selfcheck_payload(seed)
+    blobs = [b"", b"abc", bytes(range(200))]
+    for a, b in zip(port_batch._pack(blobs, 208), jax_batch._pack(blobs, 208)):
+        np.testing.assert_array_equal(a, b)
+    assert port_batch._round_up(17, 16) == jax_batch._round_up(17, 16) == 32
+    for a, b in zip(port_entry._sample_batch(8), __graft_entry__._sample_batch(8)):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_chip_smoke_fails_without_a_card():

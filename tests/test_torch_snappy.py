@@ -19,6 +19,7 @@ from aircompressor_tpu.errors import MalformedInputException  # noqa: E402
 from aircompressor_tpu.ops import snappy_jax  # noqa: E402
 from aircompressor_tpu.ops.batch import _pack, _selfcheck_payload  # noqa: E402
 from aircompressor_tpu.snappy import SnappyCompressor, SnappyRefDecompressor  # noqa: E402
+from aircompressor_tpu_torch.errors import MalformedInputException as PortMalformed  # noqa: E402
 from aircompressor_tpu_torch.ops import snappy_decode  # noqa: E402
 from aircompressor_tpu_torch.ops.batch import SnappyBatchCodec, to_device_batch  # noqa: E402
 
@@ -134,14 +135,14 @@ def test_decompress_chunks_round_trip(case):
 def test_decompress_chunks_names_malformed_chunk(case):
     good = SnappyCompressor.create().compress(b"hello world " * 50)
     bad = _malformed(SnappyCompressor.create().compress)[0]
-    with pytest.raises(MalformedInputException) as exc:
+    with pytest.raises(PortMalformed) as exc:
         SnappyBatchCodec(device="cpu").decompress_chunks([good, good, bad, good])
     assert exc.value.offset == 2
 
 
 def test_decompress_chunks_flags_chunk_over_max_chunk():
     blob = SnappyCompressor.create().compress(b"x" * 5000)
-    with pytest.raises(MalformedInputException) as exc:
+    with pytest.raises(PortMalformed) as exc:
         SnappyBatchCodec(4096, device="cpu").decompress_chunks([blob])
     assert exc.value.offset == 0
     with pytest.raises(ValueError):
