@@ -3,10 +3,11 @@
 ``iter_frames`` is a copy of ``aircompressor_tpu.snappy.framed.iter_frames``
 and walks a stream for the device decode
 (``ops.batch.snappy_framed_decompress_device``). ``compress_framed`` writes a
-stream the way ``aircompressor_tpu.snappy.framed.compress_framed`` does (64 KB
-chunks, a chunk kept uncompressed unless it shrinks below 0.85 of its size,
-masked CRC32-C of the uncompressed bytes), with every chunk compressed in one
-call of a batch compressor.
+stream the way ``aircompressor_tpu.snappy.framed.compress_framed`` does with
+its defaults (64 KB chunks, a chunk kept uncompressed unless it shrinks below
+0.85 of its size, masked CRC32-C of the uncompressed bytes), with every chunk
+compressed in one call of a batch compressor. ``chunk_spans`` lists where
+each chunk of a stream starts, for checks that alter one chunk.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ PADDING_CHUNK = 0xFE
 STREAM_IDENTIFIER = 0xFF
 
 MAX_UNCOMPRESSED_CHUNK = 65536
-DEFAULT_MIN_COMPRESSION_RATIO = 0.85
+MIN_COMPRESSION_RATIO = 0.85
 
 
 def chunk(kind: int, body: bytes) -> bytes:
@@ -34,15 +35,13 @@ def chunk(kind: int, body: bytes) -> bytes:
 
 
 def compress_framed(data: bytes,
-                    compress_chunks: Callable[[Sequence[bytes]], list[bytes]] | None = None,
-                    block_size: int = MAX_UNCOMPRESSED_CHUNK,
-                    min_compression_ratio: float = DEFAULT_MIN_COMPRESSION_RATIO) -> bytes:
+                    compress_chunks: Callable[[Sequence[bytes]], list[bytes]] | None = None
+                    ) -> bytes:
     """An x-snappy-framed stream of ``data``. ``compress_chunks`` maps a list
     of blocks to their Snappy blocks (default: the host reference codec,
     one block at a time)."""
-    if not 0 < block_size <= MAX_UNCOMPRESSED_CHUNK:
-        raise ValueError(f"block size must be in (0, 65536]: {block_size}")
-    blocks = [data[i:i + block_size] for i in range(0, len(data), block_size)]
+    step = MAX_UNCOMPRESSED_CHUNK
+    blocks = [data[i:i + step] for i in range(0, len(data), step)]
     if compress_chunks is None:
         blobs = [snappy.compress(b) for b in blocks]
     else:
@@ -50,11 +49,20 @@ def compress_framed(data: bytes,
     parts = [HEADER]
     for block, blob in zip(blocks, blobs, strict=True):
         crc = mask_crc(crc32c_raw(block)).to_bytes(4, "little")
-        if len(blob) < len(block) * min_compression_ratio:
+        if len(blob) < len(block) * MIN_COMPRESSION_RATIO:
             parts.append(chunk(COMPRESSED_CHUNK, crc + blob))
         else:
             parts.append(chunk(UNCOMPRESSED_CHUNK, crc + block))
     return b"".join(parts)
+
+
+def chunk_spans(stream: bytes) -> list[tuple[int, int]]:
+    """(kind byte, offset) of every chunk after the stream's header."""
+    spans, pos = [], len(HEADER)
+    while pos < len(stream):
+        spans.append((stream[pos], pos))
+        pos += 4 + int.from_bytes(stream[pos + 1:pos + 4], "little")
+    return spans
 
 
 def iter_frames(data: bytes):

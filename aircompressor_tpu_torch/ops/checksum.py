@@ -5,7 +5,8 @@ not a Pallas kernel; so these are plain tensor ops here, on the CPU and on
 the card alike. Same GF(2)-linear formulation as the host copy
 (``host.crc32c``): every byte's table term T[b_i] is advanced by
 A^(n-1-i) in log2(L) rounds of masked 4x256-table lookups, then the terms
-are XOR-reduced. Values are u32 held in int64 tensors.
+are XOR-reduced. Values are u32 bit patterns held in int32 tensors: XOR
+and ``(c >> k) & 0xFF`` give the same bytes under an arithmetic shift.
 """
 
 from __future__ import annotations
@@ -21,13 +22,14 @@ M32 = 0xFFFFFFFF
 
 @functools.cache
 def _tables(device: torch.device):
-    """The byte table (256,) and power tables (32, 4, 256) on ``device``."""
-    return (torch.from_numpy(_host.byte_table().astype("int64")).to(device),
-            torch.from_numpy(_host.power_tables().astype("int64")).to(device))
+    """The byte table (256,) and power tables (32, 4, 256) on ``device``, as
+    int32 bit patterns."""
+    return (torch.from_numpy(_host.byte_table().view("int32")).to(device),
+            torch.from_numpy(_host.power_tables().view("int32")).to(device))
 
 
 def _apply_map(tabs: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """Apply a 4x256-table linear map to the u32 values of ``c``."""
+    """Apply a 4x256-table linear map to the u32 bit patterns of ``c``."""
     return (tabs[0][c & 0xFF] ^ tabs[1][(c >> 8) & 0xFF]
             ^ tabs[2][(c >> 16) & 0xFF] ^ tabs[3][(c >> 24) & 0xFF])
 
@@ -45,9 +47,10 @@ def crc32c(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         raise ValueError("lengths must be (B,) on the device of data")
     B, L = data.shape
     byte, power = _tables(data.device)
-    lengths = lengths.to(torch.int64).clamp(0, L)
-    exps = lengths[:, None] - 1 - torch.arange(L, device=data.device)[None, :]
-    c = torch.where(exps >= 0, byte[data.long()], 0)
+    lengths = lengths.to(torch.int32).clamp(0, L)
+    exps = lengths[:, None] - 1 - torch.arange(L, dtype=torch.int32,
+                                               device=data.device)[None, :]
+    c = torch.where(exps >= 0, byte[data.int()], 0)
     exps = exps.clamp(min=0)
     for j in range(max(1, L - 1).bit_length()):
         c = torch.where(((exps >> j) & 1).bool(), _apply_map(power[j], c), c)
@@ -55,12 +58,12 @@ def crc32c(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         if c.shape[1] % 2:
             c = torch.nn.functional.pad(c, (0, 1))
         c = c[:, 0::2] ^ c[:, 1::2]
-    acc = c[:, 0] if L else torch.zeros(B, dtype=torch.int64, device=data.device)
-    # advance the init state 0xFFFFFFFF across `lengths` bytes
-    s = torch.full((B,), M32, dtype=torch.int64, device=data.device)
+    acc = c[:, 0] if L else torch.zeros(B, dtype=torch.int32, device=data.device)
+    # advance the init state 0xFFFFFFFF (-1 as int32) across `lengths` bytes
+    s = torch.full((B,), -1, dtype=torch.int32, device=data.device)
     for j in range(int(L).bit_length()):
         s = torch.where(((lengths >> j) & 1).bool(), _apply_map(power[j], s), s)
-    return acc ^ s ^ M32
+    return (~(acc ^ s)).to(torch.int64) & M32
 
 
 def mask_crc(crc: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,8 @@ Run from the root of a checkout, with one CUDA card visible:
     python3 chip_smoke.py
 
 It builds the CUDA kernels of ``aircompressor_tpu_torch`` from ``csrc/`` and
-holds each kernel against its plain PyTorch version on the card. Then it
+holds each kernel against its plain PyTorch version on the card, the encode
+kernel on short cases and on 64 KB rows as the compress path gives it. Then it
 drives three paths over a generated corpus of 256 chunks of 64 KB (16 MB),
 each with the kernels' launch counts set to 0 just before it and read just
 after:
@@ -38,7 +39,7 @@ import torch
 CHUNK = 65536
 N_CHUNKS = 256  # the generated corpus: 256 chunks of 64 KB, 16 MB
 SUSTAIN = 16  # device-side tiling of the corpus: 4096 chunks, 256 MB
-ENC_CUT = 8192  # encode_plain steps once per position: kernel-vs-plain cut
+ENC_CUT = 8192  # the cut of the synthetic encode cases
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 RATIO_LIMIT = 1.03  # encode size against the host reference compressor
 BAD_CRC_BLOCK = 10  # the framed block whose CRC is flipped ...
@@ -105,13 +106,13 @@ def encode_cases() -> list[bytes]:
     return cases
 
 
-def frame_spans(stream: bytes, header_len: int) -> list[tuple[int, int]]:
-    """(kind, offset) of every chunk of an x-snappy-framed stream."""
-    spans, pos = [], header_len
-    while pos < len(stream):
-        spans.append((stream[pos], pos))
-        pos += 4 + int.from_bytes(stream[pos + 1:pos + 4], "little")
-    return spans
+def full_cases(corpus: list[bytes]) -> list[bytes]:
+    """The encode comparison at the compress path's width (64 KB rows): the
+    zero chunk, text chunks (3-byte length headers, table positions and
+    offsets past 8 KB), one cut to 40000 bytes, and 64 KB of random bytes."""
+    noise = np.random.default_rng(11).integers(0, 256, CHUNK, dtype=np.uint8)
+    return [corpus[0], corpus[4], corpus[100], corpus[255], corpus[37][:40000],
+            noise.tobytes()]
 
 
 def require(cond, what: str) -> None:
@@ -249,6 +250,26 @@ def main() -> None:
     print(f"snappy encode: {len(enc_cases)} chunks of <= {ENC_CUT} B, kernel == "
           f"plain, max_abs_err {encode_err}, host decoder round trip ok")
 
+    corpus = generated_corpus()
+    full = full_cases(corpus)
+    full_in = to_device_batch(*_pack(full, CHUNK), dev)
+    k_full = snappy_encode.encode(*full_in)
+    t0 = time.perf_counter()
+    p_full = snappy_encode.encode_plain(*full_in)
+    torch.cuda.synchronize()
+    t_full_plain = time.perf_counter() - t0
+    for name, k, p in zip(("comp", "comp_lens", "ok"), k_full, p_full):
+        require(torch.equal(k, p), f"encode {name} equal plain on 64 KB rows")
+    require(bool(k_full[2].all()), "every 64 KB row encodes ok")
+    encode_err = max(encode_err, int((k_full[0].int() - p_full[0].int()).abs().max()))
+    for i, c in enumerate(full):
+        blob = k_full[0][i, :int(k_full[1][i])].cpu().numpy().tobytes()
+        require(host_snappy.decompress(blob, CHUNK) == c,
+                f"64 KB encode case {i} decodes to its original on the host")
+    print(f"snappy encode: {len(full)} chunks of <= {CHUNK} B at width {CHUNK}, "
+          f"kernel == plain (comp, comp_lens, ok), max_abs_err {encode_err}; "
+          f"plain {t_full_plain:.2f} s (host clock)")
+
     codec = SnappyBatchCodec()  # the card by default; its canaries run here
     short = [c for c in cases if len(c) <= CHUNK]
     require(codec.decompress_chunks([compress(c) for c in short]) == short,
@@ -264,7 +285,6 @@ def main() -> None:
     print("SnappyBatchCodec self-checks and round trips ok; entry() on card == CPU")
 
     print("== compress path at real size (generated corpus)", flush=True)
-    corpus = generated_corpus()
     raw, raw_lens = to_device_batch(*_pack(corpus, CHUNK), dev)
     big_raw, big_raw_lens = raw.repeat(SUSTAIN, 1), raw_lens.repeat(SUSTAIN)
     snappy_encode.launches = snappy_encode.rows = 0
@@ -360,7 +380,7 @@ def main() -> None:
     head = len(framed.HEADER)
     stream = (stream[:head] + framed.chunk(framed.PADDING_CHUNK, bytes(100))
               + stream[head:])
-    spans = frame_spans(stream, head)
+    spans = framed.chunk_spans(stream)
     kinds = [k for k, _ in spans]
     require(kinds.count(framed.UNCOMPRESSED_CHUNK) == 1 and
             kinds.count(framed.PADDING_CHUNK) == 1 and
@@ -407,8 +427,8 @@ def main() -> None:
         lambda: xxhash.xxh64(out256, lens256),
         lambda: xxhash.xxh64_plain(out256, lens256), 20, 2)
     enc_ms, enc_plain_ms = paired_ms(
-        lambda: snappy_encode.encode(*enc_in),
-        lambda: snappy_encode.encode_plain(*enc_in), 20, 1)
+        lambda: snappy_encode.encode(*full_in),
+        lambda: snappy_encode.encode_plain(*full_in), 20, 1)
     big_out, big_out_lens = res["out"], res["out_lens"]
     dec_big_ms = time_ms(lambda: snappy_decode.decode(big_comp, big_comp_lens), 5)
     xxh_big_ms = time_ms(lambda: xxhash.xxh64(big_out, big_out_lens), 10)
@@ -417,7 +437,7 @@ def main() -> None:
     crc_ms = time_ms(lambda: checksum.crc32c(out256, lens256), 5)
     raw256 = sum(map(len, corpus))  # the canary chunks fall short of 64 KB
     raw_big = raw256 * SUSTAIN
-    enc_in_bytes = int(enc_lens.sum())
+    full_bytes = sum(map(len, full))
     comp_big_bytes = int(big_comp_lens.sum())
 
     # Bounds: each input byte the function needs read once, each output
@@ -433,8 +453,8 @@ def main() -> None:
         return bound_ms(in_bytes + 4 * b, 8 * b)
 
     print(f"card: {card}")
-    print(f"snappy encode, {len(enc_cases)} chunks ({enc_in_bytes} B in): kernel "
-          f"{enc_ms:.4f} ms, plain {enc_plain_ms:.4f} ms")
+    print(f"snappy encode, {len(full)} chunks at width {CHUNK} ({full_bytes} B in): "
+          f"kernel {enc_ms:.4f} ms, plain {enc_plain_ms:.4f} ms")
     print(f"snappy encode, {N_CHUNKS} chunks ({raw256} B in): kernel {enc256_ms:.4f} ms "
           f"({gbps(raw256, enc256_ms):.3f} GB/s in)")
     print(f"snappy encode, {big_raw.shape[0]} chunks ({raw_big} B in): kernel "
@@ -478,8 +498,8 @@ def main() -> None:
          "replaces": "aircompressor_tpu/ops/snappy_encode_pallas.py:74",
          "launches": enc_launches, "max_abs_err": encode_err,
          "ms": enc_ms, "plain_ms": enc_plain_ms,
-         "bound_ms": enc_bound(enc_in_bytes, len(enc_cases)), "bound_by": "bytes",
-         "library_ms": None, "batch": f"{len(enc_cases)} chunks of <= {ENC_CUT} B",
+         "bound_ms": enc_bound(full_bytes, len(full)), "bound_by": "bytes",
+         "library_ms": None, "batch": f"{len(full)} chunks of <= {CHUNK} B",
          "chunks_ms": enc256_ms, "chunks_bound_ms": enc_bound(raw256, N_CHUNKS),
          "tiled_chunks": big_raw.shape[0], "tiled_ms": enc_big_ms,
          "tiled_bound_ms": enc_bound(raw_big, big_raw.shape[0])},

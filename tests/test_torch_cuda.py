@@ -20,6 +20,7 @@ from aircompressor_tpu_torch.ops import checksum, snappy_decode, snappy_encode, 
 from aircompressor_tpu_torch.ops.batch import (
     SnappyBatchCodec, _pack, _selfcheck_payload, snappy_framed_decompress_device,
     to_device_batch)
+from chip_smoke import backward_cap_case
 
 pytestmark = pytest.mark.cuda
 
@@ -79,10 +80,8 @@ def test_codec_round_trip_on_device(device, synthetic):
 
 def _encode_batch(synthetic, cut: int):
     rng = np.random.default_rng(cut)
-    noise = np.random.default_rng(5).integers(0, 256, 2048, dtype=np.uint8).tobytes()
     raws = [c[:cut] for _, c in synthetic] + [
-        _selfcheck_payload(s)[-cut:] for s in (1, 2)] + [
-        (noise[:900] + noise[487:])[:2048]]  # backward extension hits its cap
+        _selfcheck_payload(s)[-cut:] for s in (1, 2)] + [backward_cap_case()]
     buf, lens = _pack(raws, cut)
     noisy = buf.copy()
     for i, n in enumerate(lens):
@@ -90,7 +89,7 @@ def _encode_batch(synthetic, cut: int):
     return raws, buf, noisy, lens
 
 
-@pytest.mark.parametrize("cut", [2048, 6000])
+@pytest.mark.parametrize("cut", [2048, 6000, 65536])
 def test_encode_kernel_equals_plain(device, synthetic, cut):
     raws, buf, noisy, lens = _encode_batch(synthetic, cut)
     data, lengths = to_device_batch(buf, lens, device)

@@ -67,14 +67,6 @@ def stream(synthetic):
     return data, s
 
 
-def _chunk_offsets(s: bytes) -> list[int]:
-    pos, out = len(jax_framing.HEADER), []
-    while pos < len(s):
-        out.append(pos)
-        pos += 4 + int.from_bytes(s[pos + 1:pos + 4], "little")
-    return out
-
-
 def test_framed_decompress_equals_jax(stream):
     data, s = stream
     got = snappy_framed_decompress_device(s, device="cpu")
@@ -89,7 +81,8 @@ def _flip(s: bytes, pos: int) -> bytes:
 @pytest.mark.parametrize("what", ["compressed_crc", "uncompressed_crc", "header"])
 def test_framed_decompress_raises_as_jax(stream, what):
     _, s = stream
-    offsets = _chunk_offsets(s)  # [padding, block 0, block 1, stored block 2, ...]
+    # [padding, block 0, block 1, stored block 2, ...]
+    offsets = [pos for _, pos in port_framing.chunk_spans(s)]
     pos = {"compressed_crc": offsets[4] + 4,  # block 3: compressed chunk 2
            "uncompressed_crc": offsets[3] + 4,
            "header": 3}[what]

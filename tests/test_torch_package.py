@@ -101,6 +101,70 @@ def test_port_host_helpers_equal_the_jax_package():
         np.testing.assert_array_equal(a, b)
 
 
+def _host_snappy_inputs() -> list[bytes]:
+    import chip_smoke
+    from aircompressor_tpu_torch.ops.batch import _selfcheck_payload
+
+    return [c for _, c in chip_smoke.synthetic_cases()] + [
+        chip_smoke.backward_cap_case(), _selfcheck_payload(1)]
+
+
+def _malformed_snappy_blobs() -> list[bytes]:
+    """The smoke's malformed blocks, then: no varint, an overlong varint, a
+    literal past the input, a short block, a zero offset, an offset past
+    the output, a truncated copy."""
+    import chip_smoke
+    from aircompressor_tpu_torch.host import snappy as host_snappy
+
+    return chip_smoke.malformed_cases(host_snappy.compress) + [
+        b"", b"\x80\x80\x80\x80\x80\x01", b"\x05\x10ab", b"\x05\x04ab",
+        b"\x08\x0cabcd\x01\x00", b"\x08\x0cabcd\x01\x09", b"\x08\x0cabcd\x02\x04"]
+
+
+HOST_INPUTS = _host_snappy_inputs()
+MALFORMED = _malformed_snappy_blobs()
+
+
+@pytest.mark.parametrize("case", range(len(HOST_INPUTS)))
+def test_port_host_snappy_equals_the_jax_reference(case):
+    """The port's host Snappy copy writes and reads the JAX package's
+    reference codec's bytes."""
+    from aircompressor_tpu.snappy import SnappyRefCompressor, SnappyRefDecompressor
+    from aircompressor_tpu_torch.host import snappy as host_snappy
+
+    raw = HOST_INPUTS[case]
+    blob = host_snappy.compress(raw)
+    assert blob == SnappyRefCompressor().compress(raw)
+    assert host_snappy.decompress(blob, len(raw)) == raw
+    assert SnappyRefDecompressor().decompress(blob, len(raw)) == raw
+
+
+@pytest.mark.parametrize("case", range(len(MALFORMED)))
+def test_port_host_snappy_rejects_as_the_jax_reference(case):
+    """A malformed block raises in both, at the same offset."""
+    from aircompressor_tpu.errors import MalformedInputException
+    from aircompressor_tpu.snappy import SnappyRefDecompressor
+    from aircompressor_tpu_torch.errors import MalformedInputException as PortMalformed
+    from aircompressor_tpu_torch.host import snappy as host_snappy
+
+    blob = MALFORMED[case]
+    with pytest.raises(MalformedInputException) as want:
+        SnappyRefDecompressor().decompress(blob, 65536)
+    with pytest.raises(PortMalformed) as got:
+        host_snappy.decompress(blob, 65536)
+    assert got.value.offset == want.value.offset
+
+
+def test_port_host_xxh64_equals_the_jax_scalar():
+    from aircompressor_tpu.xxhash import _scalar
+    from aircompressor_tpu_torch.host.xxhash import xxh64
+
+    data = np.random.default_rng(4).integers(0, 256, 65536, dtype=np.uint8)
+    for n in list(range(101)) + [65536]:
+        assert xxh64(data[:n]) == _scalar.xxh64(data[:n]), n
+        assert xxh64(data[:n].tobytes()) == _scalar.xxh64(data[:n].tobytes()), n
+
+
 def test_chip_smoke_fails_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -22,22 +22,17 @@ from aircompressor_tpu.ops.batch import _pack, _selfcheck_payload  # noqa: E402
 from aircompressor_tpu.snappy import SnappyRefDecompressor  # noqa: E402
 from aircompressor_tpu_torch.ops import snappy_encode  # noqa: E402
 from aircompressor_tpu_torch.ops.batch import SnappyBatchCodec, to_device_batch  # noqa: E402
+from chip_smoke import backward_cap_case  # noqa: E402
 
 SMALL = 2048  # the interpret-mode Pallas batch: 8 chunks of at most 2 KB
 CUT = 16384  # compress_chunks cases: encode_plain steps once per position
 
 
 def _small_cases() -> list[bytes]:
-    rng = np.random.default_rng(5)
     text = b"The quick brown fox jumps over the lazy dog. 0123456789 " * 40
-    noise = rng.integers(0, 256, SMALL, dtype=np.uint8).tobytes()
-    # Random bytes whose tail repeats an earlier stretch: by then the skip
-    # has grown, the first hit lies far into the repeat, and backward
-    # extension stops at its 127-byte cap.
-    repeat = (noise[:900] + noise[487:])[:SMALL]
-    return [b"", b"X", text[:SMALL], bytes(SMALL), b"ab" * (SMALL // 2), repeat,
-            rng.integers(0, 4, SMALL, dtype=np.uint8).tobytes(),
-            _selfcheck_payload(3)[:SMALL]]
+    two_bit = np.random.default_rng(6).integers(0, 4, SMALL, dtype=np.uint8)
+    return [b"", b"X", text[:SMALL], bytes(SMALL), b"ab" * (SMALL // 2),
+            backward_cap_case(), two_bit.tobytes(), _selfcheck_payload(3)[:SMALL]]
 
 
 @pytest.fixture(scope="module")
