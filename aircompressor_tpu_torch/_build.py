@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
 ``csrc/*.cu`` compile once into one shared library with a plain C
-interface, under ``build/kernels/`` at the root of the checkout. The file
+interface, under ``build/kernels/`` at the root of the checkout: one nvcc
+process for each source, all started together, then one link. The file
 name carries a hash of the sources and flags, so an edited source builds
 anew and an unchanged one loads the library already built. Nothing here
 includes PyTorch's headers: pointers and the stream pass as integers, which
@@ -19,8 +20,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -29,6 +31,9 @@ _SIGNATURES = {
     "acx_snappy_decode": [_P, _P, _I, _I, _P, _P, _P, _I, _P],
     "acx_snappy_encode": [_P, _P, _I, _I, _P, _P, _P, _P],
     "acx_xxh64": [_P, _P, _I, _I, _P, _P],
+    "acx_lz4_decode": [_P, _P, _I, _I, _P, _P, _P, _I, _P],
+    "acx_lz4_encode": [_P, _P, _I, _I, _P, _P, _P, _P],
+    "acx_xxh32": [_P, _P, _I, _I, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -61,22 +66,45 @@ def _nvcc() -> str:
 def build() -> Path:
     """Compile the kernels unless this exact build exists; return its path.
 
-    The compiler's output (with ptxas's register and spill report) is kept
+    The compilers' output (with ptxas's register and spill report) is kept
     beside the library as ``.log``. Raises with the compiler's stderr when
-    the build fails.
+    the build fails; no compiler process outlives the call.
     """
     lib = library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n"
-            f"{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    nvcc = _nvcc()
+    jobs = [(src, tmp.with_name(f"{tmp.name}.{src.stem}.o")) for src in _sources()]
+    procs = []
+    try:
+        for src, obj in jobs:
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = []
+        for (src, _), proc in zip(jobs, procs):
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed with exit code {proc.returncode} on {src.name}:\n{log}")
+            logs.append(log)
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj in jobs)]
+        link = subprocess.run(cmd, capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {link.returncode}: {' '.join(cmd)}\n"
+                f"{link.stderr}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for _, obj in jobs:
+            obj.unlink(missing_ok=True)
+    lib.with_suffix(".log").write_text("".join(logs) + link.stdout + link.stderr)
     os.replace(tmp, lib)
     return lib
 

@@ -1,17 +1,29 @@
-"""Scalar one-shot XXH64 (the public xxHash spec), the oracle of the xxh64
-kernel. A copy of ``aircompressor_tpu.xxhash._scalar.xxh64``."""
+"""Scalar one-shot XXH32 and XXH64 (the public xxHash spec), the oracles of
+the xxh32 and xxh64 kernels. Copies of ``aircompressor_tpu.xxhash._scalar``'s
+``xxh32`` and ``xxh64``."""
 
 from __future__ import annotations
 
 import numpy as np
 
+M32 = 0xFFFFFFFF
 M64 = 0xFFFFFFFFFFFFFFFF
+
+P32_1 = 2654435761
+P32_2 = 2246822519
+P32_3 = 3266489917
+P32_4 = 668265263
+P32_5 = 374761393
 
 P64_1 = 0x9E3779B185EBCA87
 P64_2 = 0xC2B2AE3D27D4EB4F
 P64_3 = 0x165667B19E3779F9
 P64_4 = 0x85EBCA77C2B2AE63
 P64_5 = 0x27D4EB2F165667C5
+
+
+def _rotl32(x: int, r: int) -> int:
+    return ((x << r) | (x >> (32 - r))) & M32
 
 
 def _rotl64(x: int, r: int) -> int:
@@ -26,6 +38,10 @@ def _u64le(b: np.ndarray, i: int) -> int:
     return _u32le(b, i) | _u32le(b, i + 4) << 32
 
 
+def _round32(acc: int, lane: int) -> int:
+    return (_rotl32((acc + lane * P32_2) & M32, 13) * P32_1) & M32
+
+
 def _round64(acc: int, lane: int) -> int:
     return (_rotl64((acc + lane * P64_2) & M64, 31) * P64_1) & M64
 
@@ -33,6 +49,40 @@ def _round64(acc: int, lane: int) -> int:
 def _merge64(h: int, acc: int) -> int:
     h ^= _round64(0, acc)
     return (h * P64_1 + P64_4) & M64
+
+
+def xxh32(data, seed: int = 0) -> int:
+    """One-shot xxHash32 of a buffer. Returns unsigned 32-bit int."""
+    b = data if isinstance(data, np.ndarray) else np.frombuffer(memoryview(data), dtype=np.uint8)
+    n = b.size
+    i = 0
+    if n >= 16:
+        n_stripes = n // 16
+        words = b[: n_stripes * 16].view("<u4").reshape(n_stripes, 4)
+        accs = [(seed + P32_1 + P32_2) & M32, (seed + P32_2) & M32, seed & M32,
+                (seed - P32_1) & M32]
+        for s in range(n_stripes):
+            w = words[s]
+            for k in range(4):
+                accs[k] = _round32(accs[k], int(w[k]))
+        h = (_rotl32(accs[0], 1) + _rotl32(accs[1], 7) + _rotl32(accs[2], 12)
+             + _rotl32(accs[3], 18)) & M32
+        i = n_stripes * 16
+    else:
+        h = (seed + P32_5) & M32
+    h = (h + n) & M32
+    while i + 4 <= n:
+        h = (_rotl32((h + _u32le(b, i) * P32_3) & M32, 17) * P32_4) & M32
+        i += 4
+    while i < n:
+        h = (_rotl32((h + int(b[i]) * P32_5) & M32, 11) * P32_1) & M32
+        i += 1
+    h ^= h >> 15
+    h = (h * P32_2) & M32
+    h ^= h >> 13
+    h = (h * P32_3) & M32
+    h ^= h >> 16
+    return h
 
 
 def xxh64(data, seed: int = 0) -> int:

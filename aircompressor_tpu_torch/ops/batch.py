@@ -1,13 +1,14 @@
-"""Batched Snappy on a torch device: the user surface over the kernels.
+"""Batched Snappy and LZ4 on a torch device: the user surface over the kernels.
 
-Counterpart of ``aircompressor_tpu.ops.batch.SnappyBatchCodec`` and
-``snappy_framed_decompress_device``. Every chunk goes to the kernels: the
-decode kernel reads its input from device memory and has no limit on the
-compressed length, so there is no host tier for large blobs, and every
-chunk to compress goes through the encode kernel. Before its first batch
-each way, a codec runs a 64 KB canary through the kernel and raises if the
-bytes differ; there is no fallback. The codec runs on the card unless it is
-given ``device="cpu"``, where the plain PyTorch versions run.
+Counterpart of ``aircompressor_tpu.ops.batch``'s ``SnappyBatchCodec``,
+``Lz4BatchCodec`` and ``snappy_framed_decompress_device``. Every chunk goes
+to the kernels: the decode kernels read their input from device memory and
+have no limit on the compressed length, so there is no host tier for large
+blobs, and every chunk to compress goes through an encode kernel. Before
+its first batch each way, a codec runs a 64 KB canary through the kernel
+and raises if the bytes differ; there is no fallback. A codec runs on the
+card unless it is given ``device="cpu"``, where the plain PyTorch versions
+run.
 """
 
 from __future__ import annotations
@@ -19,9 +20,9 @@ import numpy as np
 import torch
 
 from ..errors import MalformedInputException
-from ..host import framed, snappy as host_snappy
+from ..host import framed, lz4 as host_lz4, snappy as host_snappy
 from ..host.crc32c import crc32c_raw, mask_crc
-from . import checksum, snappy_decode, snappy_encode
+from . import checksum, lz4_decode, lz4_encode, snappy_decode, snappy_encode
 
 CHUNK = 65536
 
@@ -64,10 +65,10 @@ def _pack(blobs: Sequence[bytes], cap: int):
 
 
 @functools.cache
-def _canary() -> tuple[bytes, bytes]:
-    """The canary payload and its Snappy block from the host reference."""
+def _canary(host) -> tuple[bytes, bytes]:
+    """The canary payload and its block from a host reference codec."""
     payload = _selfcheck_payload()
-    return payload, host_snappy.compress(payload)
+    return payload, host.compress(payload)
 
 
 def to_device_batch(buf: np.ndarray, lens: np.ndarray, device):
@@ -90,41 +91,45 @@ def _rows(out: torch.Tensor, lens: torch.Tensor) -> list[bytes]:
     return [out[i, :lens[i]].tobytes() for i in range(len(lens))]
 
 
-class SnappyBatchCodec:
-    """Chunk-parallel Snappy encode and decode of chunks up to ``max_chunk``
-    bytes, on ``device`` (the card by default)."""
+class _BlockBatchCodec:
+    """Chunk-parallel block encode and decode of chunks up to ``max_chunk``
+    bytes, on ``device`` (the card by default), through the ``decoder`` and
+    ``encoder`` op modules, with ``host`` the reference codec of the
+    self-checks."""
+
+    name: str
+    host = decoder = encoder = None
 
     def __init__(self, max_chunk: int = CHUNK, *, device="cuda"):
         if max_chunk > CHUNK:
-            raise ValueError("snappy batch chunks are capped at 64KB")
+            raise ValueError(f"{self.name} batch chunks are capped at 64KB")
         self.max_chunk = max_chunk
         self.device = torch.device(device)
         self._decode_checked = False
         self._encode_checked = False
 
     def _decode_self_check(self) -> None:
-        payload, blob = _canary()
-        out, out_lens, ok = snappy_decode.decode(
+        payload, blob = _canary(self.host)
+        out, out_lens, ok = self.decoder.decode(
             *to_device_batch(*_pack([blob], len(blob)), self.device))
         n = int(out_lens[0])
         if not (bool(ok[0]) and out[0, :n].cpu().numpy().tobytes() == payload):
             raise RuntimeError(
-                f"snappy decode failed its self-check on {self.device}")
+                f"{self.name} decode failed its self-check on {self.device}")
         self._decode_checked = True
 
     def _encode_self_check(self) -> None:
-        payload, _ = _canary()
-        comp, comp_lens, ok = snappy_encode.encode(
+        payload, _ = _canary(self.host)
+        comp, comp_lens, ok = self.encoder.encode(
             *to_device_batch(*_pack([payload], len(payload)), self.device))
         blob = _rows(comp, comp_lens)[0]
-        if not (bool(ok[0]) and
-                host_snappy.decompress(blob, len(payload)) == payload):
+        if not (bool(ok[0]) and self.host.decompress(blob, len(payload)) == payload):
             raise RuntimeError(
-                f"snappy encode failed its self-check on {self.device}")
+                f"{self.name} encode failed its self-check on {self.device}")
         self._encode_checked = True
 
     def compress_chunks(self, chunks: Sequence[bytes]) -> list[bytes]:
-        """One Snappy block for each chunk; raises ValueError for a chunk over
+        """One block for each chunk; raises ValueError for a chunk over
         ``max_chunk`` and RuntimeError if the kernel flags a chunk not ok."""
         if not chunks:
             return []
@@ -134,12 +139,12 @@ class SnappyBatchCodec:
         if not self._encode_checked:
             self._encode_self_check()
         cap = _round_up(max(1, max(len(c) for c in chunks)), 16)
-        comp, comp_lens, ok = snappy_encode.encode(
+        comp, comp_lens, ok = self.encoder.encode(
             *to_device_batch(*_pack(chunks, cap), self.device))
         bad = np.nonzero(~ok.cpu().numpy())[0]
         if bad.size:
-            raise RuntimeError(f"snappy encode overflowed its output on chunk "
-                               f"{int(bad[0])}")
+            raise RuntimeError(f"{self.name} encode overflowed its output on "
+                               f"chunk {int(bad[0])}")
         return _rows(comp, comp_lens)
 
     def decompress_chunks(self, blobs: Sequence[bytes]) -> list[bytes]:
@@ -151,13 +156,27 @@ class SnappyBatchCodec:
             self._decode_self_check()
         cap = _round_up(max(1, max(len(b) for b in blobs)), 16)
         comp, comp_lens = to_device_batch(*_pack(blobs, cap), self.device)
-        out, out_lens, ok = snappy_decode.decode(comp, comp_lens,
-                                                 out_cap=self.max_chunk)
+        out, out_lens, ok = self.decoder.decode(comp, comp_lens,
+                                                out_cap=self.max_chunk)
         bad = np.nonzero(~ok.cpu().numpy())[0]
         if bad.size:
             raise MalformedInputException(int(bad[0]),
-                                          "malformed snappy chunk in batch")
+                                          f"malformed {self.name} chunk in batch")
         return _rows(out, out_lens)
+
+
+class SnappyBatchCodec(_BlockBatchCodec):
+    """Chunk-parallel Snappy encode and decode of chunks up to ``max_chunk``
+    bytes, on ``device`` (the card by default)."""
+
+    name, host, decoder, encoder = "snappy", host_snappy, snappy_decode, snappy_encode
+
+
+class Lz4BatchCodec(_BlockBatchCodec):
+    """Chunk-parallel LZ4 block encode and decode of chunks up to
+    ``max_chunk`` bytes, on ``device`` (the card by default)."""
+
+    name, host, decoder, encoder = "lz4", host_lz4, lz4_decode, lz4_encode
 
 
 def snappy_framed_decompress_device(data: bytes, verify_checksums: bool = True,

@@ -17,8 +17,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-
-MAX_OUT = 65536
+from ._rows import MAX_CHUNK as MAX_OUT, check_decode_args
 
 # Kernel launches and the chunks they decoded, for runs that must show the
 # kernel was used. Only a launch of the CUDA kernel adds to them.
@@ -26,25 +25,11 @@ launches = 0
 rows = 0
 
 
-def _check(comp: torch.Tensor, comp_lens: torch.Tensor, out_cap: int):
-    if comp.dtype != torch.uint8 or comp.dim() != 2:
-        raise TypeError(f"comp must be a 2-D uint8 tensor, got {comp.dtype} "
-                        f"{tuple(comp.shape)}")
-    if comp_lens.shape != (comp.shape[0],):
-        raise ValueError(f"comp_lens must have shape ({comp.shape[0]},), got "
-                         f"{tuple(comp_lens.shape)}")
-    if comp_lens.device != comp.device:
-        raise ValueError("comp and comp_lens lie on different devices")
-    if not 0 < out_cap <= MAX_OUT:
-        raise ValueError(f"out_cap must lie in [1, {MAX_OUT}], got {out_cap}")
-    return comp.contiguous(), comp_lens.to(torch.int32).contiguous()
-
-
 def decode(comp: torch.Tensor, comp_lens: torch.Tensor,
            out_cap: int = MAX_OUT):
     """Decode B Snappy blocks of at most 64 KB each; see the module doc."""
     global launches, rows
-    comp, comp_lens = _check(comp, comp_lens, out_cap)
+    comp, comp_lens = check_decode_args(comp, comp_lens, out_cap)
     if comp.device.type == "cpu":
         return decode_plain(comp, comp_lens, out_cap)
     if comp.device.type != "cuda":
@@ -77,7 +62,7 @@ def decode_plain(comp: torch.Tensor, comp_lens: torch.Tensor,
     output offsets by cumsum, the covering token of each output byte by
     searchsorted, and copy chains resolved by pointer doubling.
     """
-    comp, comp_lens = _check(comp, comp_lens, out_cap)
+    comp, comp_lens = check_decode_args(comp, comp_lens, out_cap)
     B, cap = comp.shape
     dev = comp.device
     i64 = torch.int64

@@ -30,8 +30,8 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ._rows import check_encode_args, put, u32le
 
-MAX_IN = 65536
 OUT_CAP = 76800
 HASH_LOG = 14
 INPUT_MARGIN = 15
@@ -43,25 +43,10 @@ launches = 0
 rows = 0
 
 
-def _check(data: torch.Tensor, lengths: torch.Tensor):
-    if data.dtype != torch.uint8 or data.dim() != 2:
-        raise TypeError(f"data must be a 2-D uint8 tensor, got {data.dtype} "
-                        f"{tuple(data.shape)}")
-    if data.shape[1] > MAX_IN:
-        raise ValueError(f"rows are capped at {MAX_IN} bytes, got {data.shape[1]}")
-    if lengths.shape != (data.shape[0],):
-        raise ValueError(f"lengths must have shape ({data.shape[0]},), got "
-                         f"{tuple(lengths.shape)}")
-    if lengths.device != data.device:
-        raise ValueError("data and lengths lie on different devices")
-    lengths = lengths.to(torch.int32).clamp(0, data.shape[1])
-    return data.contiguous(), lengths.contiguous()
-
-
 def encode(data: torch.Tensor, lengths: torch.Tensor):
     """Encode B chunks of at most 64 KB each; see the module doc."""
     global launches, rows
-    data, lengths = _check(data, lengths)
+    data, lengths = check_encode_args(data, lengths)
     if data.device.type == "cpu":
         return encode_plain(data, lengths)
     if data.device.type != "cuda":
@@ -89,23 +74,6 @@ def _hash(u: torch.Tensor) -> torch.Tensor:
     return ((u * 0x1E35A7BD) & 0xFFFFFFFF) >> (32 - HASH_LOG)
 
 
-def _u32(src: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    """Little-endian 4-byte words of each row of ``src`` at ``pos``."""
-    idx = pos[:, None] + torch.arange(4, device=src.device)
-    b = src.gather(1, idx)
-    return b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16) | (b[:, 3] << 24)
-
-
-def _put(out: torch.Tensor, op: torch.Tensor, vals: torch.Tensor,
-         count: torch.Tensor) -> None:
-    """out[b, op[b] + k] = vals[b, k] for k < count[b]; stores at or past
-    OUT_CAP go to the sink column OUT_CAP."""
-    k = torch.arange(vals.shape[1], device=out.device)[None, :]
-    pos = op[:, None] + k
-    pos = torch.where((k < count[:, None]) & (pos < OUT_CAP), pos, OUT_CAP)
-    out.scatter_(1, pos, vals.to(torch.uint8))
-
-
 def _emit_literal(out, op, src, mask, start, length):
     """A literal run of ``length`` bytes from ``start`` where ``mask``;
     returns the new ``op``."""
@@ -114,14 +82,14 @@ def _emit_literal(out, op, src, mask, start, length):
     hdr = torch.stack([torch.where(one, n1 << 2, torch.where(two, 60 << 2, 61 << 2)),
                        n1 & 255, n1 >> 8], 1)
     hlen = torch.where(mask, torch.where(one, 1, torch.where(two, 2, 3)), 0)
-    _put(out, op, hdr, hlen)
+    put(out, op, hdr, hlen)
     op = op + hlen
     count = torch.where(mask, length, 0)
     width = int(count.max())
     if width:
         idx = (start[:, None] + torch.arange(width, device=src.device)).clamp(
             max=src.shape[1] - 1)
-        _put(out, op, src.gather(1, idx), count)
+        put(out, op, src.gather(1, idx), count)
     return op + count
 
 
@@ -144,7 +112,7 @@ def _emit_copy(out, op, mask, length, dist):
     phase = t % 3  # every piece starts at a multiple of 3
     vals = torch.where(phase == 0, tag, torch.where(
         phase == 1, (dist & 255)[:, None], (dist >> 8)[:, None]))
-    _put(out, op, vals, count)
+    put(out, op, vals, count)
     return op + count
 
 
@@ -156,7 +124,7 @@ def encode_plain(data: torch.Tensor, lengths: torch.Tensor):
     forward and backward extension and emits its literal run and copy in
     that same step, over windows of its row.
     """
-    data, lengths = _check(data, lengths)
+    data, lengths = check_encode_args(data, lengths)
     B, cap = data.shape
     dev = data.device
     i64 = torch.int64
@@ -174,7 +142,7 @@ def encode_plain(data: torch.Tensor, lengths: torch.Tensor):
                        torch.where(rest < 128, rest, (rest & 127) | 128),
                        rest >> 7], 1)
     op = torch.where(n < 128, 1, torch.where(rest < 128, 2, 3))
-    _put(out, zero, hdr, op)
+    put(out, zero, hdr, op)
 
     table = torch.full((B, 1 << HASH_LOG), -1, dtype=i64, device=dev)
     ip = zero.clone()
@@ -191,11 +159,11 @@ def encode_plain(data: torch.Tensor, lengths: torch.Tensor):
             live = live & ~tail
         if not scan.any():
             break
-        u = _u32(src, ip)
+        u = u32le(src, ip)
         h = _hash(u)
         cand = table.gather(1, h[:, None])[:, 0]
         table[rows_b[scan], h[scan]] = ip[scan]
-        hit = scan & (cand >= 0) & (cand < ip) & (_u32(src, cand.clamp(min=0)) == u)
+        hit = scan & (cand >= 0) & (cand < ip) & (u32le(src, cand.clamp(min=0)) == u)
         miss = scan & ~hit
         ip = torch.where(miss, ip + (skip >> 5), ip)
         skip = torch.where(miss, skip + 1, skip)
@@ -230,7 +198,7 @@ def encode_plain(data: torch.Tensor, lengths: torch.Tensor):
         lit = ip - back - anchor
         op = _emit_literal(out, op, src, hit & (lit > 0), anchor, lit)
         op = _emit_copy(out, op, hit, mlen + back, ip - cand)
-        h_end = _hash(_u32(src, (mend - 1).clamp(min=0)))
+        h_end = _hash(u32le(src, (mend - 1).clamp(min=0)))
         table[rows_b[hit], h_end[hit]] = (mend - 1)[hit]
         ip = torch.where(hit, mend, ip)
         anchor = torch.where(hit, mend, anchor)

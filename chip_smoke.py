@@ -6,10 +6,10 @@ Run from the root of a checkout, with one CUDA card visible:
 
 It builds the CUDA kernels of ``aircompressor_tpu_torch`` from ``csrc/`` and
 holds each kernel against its plain PyTorch version on the card, the encode
-kernel on short cases and on 64 KB rows as the compress path gives it. Then it
-drives three paths over a generated corpus of 256 chunks of 64 KB (16 MB),
-each with the kernels' launch counts set to 0 just before it and read just
-after:
+kernels on short cases and on 64 KB rows as the compress paths give them.
+Then it drives four paths over a generated corpus of 256 chunks of 64 KB
+(16 MB), each with the kernels' launch counts set to 0 just before it and
+read just after:
 
 - compress: ``SnappyBatchCodec.compress_chunks`` on the corpus, and the
   corpus tiled 16 times on the device (4096 chunks, 256 MB) through the
@@ -17,7 +17,10 @@ after:
 - decode: ``decompress_chunks`` on the corpus's blocks, and the tiled
   blocks through the decode and xxh64 kernels (``entry.decode_and_hash``);
 - framed: an x-snappy-framed stream of the corpus through
-  ``snappy_framed_decompress_device``.
+  ``snappy_framed_decompress_device``;
+- LZ4: ``Lz4BatchCodec.compress_chunks`` and ``decompress_chunks`` on the
+  corpus, and the corpus tiled 16 times through the LZ4 encode kernel, the
+  LZ4 decode kernel and the xxh32 kernel.
 
 Every byte and hash is checked against the originals and the port's host
 reference codecs. It prints the card's name and power limit, kernel and
@@ -42,6 +45,8 @@ SUSTAIN = 16  # device-side tiling of the corpus: 4096 chunks, 256 MB
 ENC_CUT = 8192  # the cut of the synthetic encode cases
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 RATIO_LIMIT = 1.03  # encode size against the host reference compressor
+LZ4_RATIO_LIMIT = 1.01  # LZ4 encode size against the host LZ4 compressor on 16
+                        # chunks: encode_plain's 1.000624 on the CPU, rounded up
 BAD_CRC_BLOCK = 10  # the framed block whose CRC is flipped ...
 BAD_CRC_INDEX = 9  # ... and its index among the compressed chunks (block 4
                    # is stored uncompressed), which the decode must report
@@ -85,12 +90,52 @@ def generated_corpus() -> list[bytes]:
                       for i in range(N_CHUNKS - len(special))]
 
 
-def backward_cap_case() -> bytes:
-    """2 KB of random bytes whose tail repeats an earlier stretch: the skip
-    has grown by then, so the first hit lies far into the repeat and
-    backward extension stops at its 127-byte cap."""
+def backward_cap_case(start: int = 900, source: int = 487) -> bytes:
+    """2 KB of random bytes whose tail, from ``start``, repeats the stretch
+    from ``source``: the skip has grown by then, so the first hit lies far
+    into the repeat and backward extension stops at its 127-byte cap. The
+    defaults reach the cap in the Snappy encoder, (1000, 200) in the LZ4
+    encoder."""
     noise = np.random.default_rng(5).integers(0, 256, 2048, dtype=np.uint8).tobytes()
-    return (noise[:900] + noise[487:])[:2048]
+    return (noise[:start] + noise[source:])[:2048]
+
+
+def lz4_malformed_cases(compress) -> list[bytes]:
+    """Truncated, a literal run past the input, a zeroed offset, a literal
+    run over 64 KB (the cases of tests/test_pallas_kernels.py, on generated
+    text)."""
+    text = (b"The quick brown fox jumps over the lazy dog. 0123456789 "
+            * 600)[:30000]
+    blob = compress(text)
+    run = 67200
+    fills, last = divmod(run - 15, 255)
+    return [blob[: len(blob) // 2], blob[: len(blob) - 3], b"\xf0" + blob[1:],
+            blob[:1] + b"\x00\x00" + blob[3:],
+            b"\xf0" + b"\xff" * fills + bytes([last]) + b"A" * run]
+
+
+# Blocks on which the JAX package's LZ4 decoders part (ROADMAP F6), with the
+# ok flag and out_lens that lz4_pallas_w.decode gives them (interpret mode).
+LZ4_EDGE_BLOCKS = [
+    (bytes.fromhex("14610100"), False, 9), (bytes.fromhex("1061"), True, 1),
+    (bytes.fromhex("00"), True, 0), (b"", False, 0),
+    (bytes.fromhex("10610000"), False, 1), (bytes.fromhex("1f61010000"), False, 20),
+    (bytes.fromhex("1461010000"), True, 9),
+]
+
+
+def lz4_length_edges_case() -> bytes:
+    """2266 B whose LZ4 sequences have literal runs of 15, 270 and 525 and
+    matches of 15 + 4, 270 + 4 and 525 + 4 bytes: lengths whose 255-extension
+    ends in a 0 byte. Each repeat copies the stretch just before the literal
+    run that precedes it."""
+    noise = np.random.default_rng(0).integers(0, 256, 2000, dtype=np.uint8).tobytes()
+    out, pos = b"", 0
+    for lit, match in ((600, 19), (15, 274), (270, 529), (15, 19)):
+        out += noise[pos:pos + lit]
+        pos += lit
+        out += out[max(0, len(out) - match - lit):][:match]
+    return out + noise[pos:pos + 525]
 
 
 def encode_cases() -> list[bytes]:
@@ -113,6 +158,17 @@ def full_cases(corpus: list[bytes]) -> list[bytes]:
     noise = np.random.default_rng(11).integers(0, 256, CHUNK, dtype=np.uint8)
     return [corpus[0], corpus[4], corpus[100], corpus[255], corpus[37][:40000],
             noise.tobytes()]
+
+
+def lz4_full_cases(corpus: list[bytes]) -> list[bytes]:
+    """The LZ4 encode comparison at the compress path's width (64 KB rows):
+    the zero chunk, three text chunks (one cut to 40000 bytes), 64 KB of
+    random bytes, and a chunk of long runs: 5000 random bytes, 30000 x "a"
+    and a repeat of the random start, whose literal and match lengths carry
+    long 255-extension strings."""
+    noise = np.random.default_rng(11).integers(0, 256, CHUNK, dtype=np.uint8).tobytes()
+    runs = (noise[:5000] + b"a" * 30000 + noise)[:CHUNK]
+    return [corpus[0], corpus[4], corpus[100], corpus[37][:40000], noise, runs]
 
 
 def require(cond, what: str) -> None:
@@ -169,11 +225,14 @@ def main() -> None:
     from aircompressor_tpu_torch.entry import _sample_batch, decode_and_hash, entry
     from aircompressor_tpu_torch.errors import MalformedInputException
     from aircompressor_tpu_torch.host import framed
+    from aircompressor_tpu_torch.host import lz4 as host_lz4
     from aircompressor_tpu_torch.host import snappy as host_snappy
+    from aircompressor_tpu_torch.host.xxhash import xxh32 as host_xxh32
     from aircompressor_tpu_torch.host.xxhash import xxh64 as host_xxh64
-    from aircompressor_tpu_torch.ops import checksum, snappy_decode, snappy_encode, xxhash
+    from aircompressor_tpu_torch.ops import (
+        checksum, lz4_decode, lz4_encode, snappy_decode, snappy_encode, xxhash)
     from aircompressor_tpu_torch.ops.batch import (
-        SnappyBatchCodec, _pack, _round_up, _selfcheck_payload,
+        Lz4BatchCodec, SnappyBatchCodec, _pack, _round_up, _selfcheck_payload,
         snappy_framed_decompress_device, to_device_batch)
 
     print("== build", flush=True)
@@ -269,6 +328,86 @@ def main() -> None:
     print(f"snappy encode: {len(full)} chunks of <= {CHUNK} B at width {CHUNK}, "
           f"kernel == plain (comp, comp_lens, ok), max_abs_err {encode_err}; "
           f"plain {t_full_plain:.2f} s (host clock)")
+
+    print("== LZ4 and xxh32 kernels against plain on the card", flush=True)
+    lz4_full = lz4_full_cases(corpus)
+    lz4_full_buf, lz4_full_lens = _pack(lz4_full, CHUNK)
+    lz4_full_in = to_device_batch(lz4_full_buf, lz4_full_lens, dev)
+    k_lz = lz4_encode.encode(*lz4_full_in)
+    t0 = time.perf_counter()
+    p_lz = lz4_encode.encode_plain(*lz4_full_in)
+    torch.cuda.synchronize()
+    t_lz_plain = time.perf_counter() - t0
+    for name, k, p in zip(("comp", "comp_lens", "ok"), k_lz, p_lz):
+        require(torch.equal(k, p), f"lz4 encode {name} equal plain on 64 KB rows")
+    require(bool(k_lz[2].all()), "every 64 KB row encodes ok in LZ4")
+    lz4_encode_err = int((k_lz[0].int() - p_lz[0].int()).abs().max())
+    lz4_full_blobs = [k_lz[0][i, :int(k_lz[1][i])].cpu().numpy().tobytes()
+                      for i in range(len(lz4_full))]
+    for i, c in enumerate(lz4_full):
+        require(host_lz4.decompress(lz4_full_blobs[i], CHUNK) == c,
+                f"LZ4 64 KB encode case {i} decodes to its original on the host")
+    noisy = lz4_full_buf.copy()
+    for i, n in enumerate(lz4_full_lens):
+        noisy[i, n:] = rng.integers(0, 256, CHUNK - n, dtype=np.uint8)
+    n_lz = lz4_encode.encode(*to_device_batch(noisy, lz4_full_lens, dev))
+    require(all(torch.equal(a, b) for a, b in zip(n_lz, k_lz)),
+            "bytes past each length do not change the LZ4 encode")
+    print(f"lz4 encode: {len(lz4_full)} chunks of <= {CHUNK} B at width {CHUNK}, "
+          f"kernel == plain (comp, comp_lens, ok), max_abs_err {lz4_encode_err}; "
+          f"host decoder round trip ok; plain {t_lz_plain:.2f} s (host clock)")
+
+    lz4_raws = ([c for _, c in synthetic_cases()] + [lz4_length_edges_case()]
+                + [_selfcheck_payload(seed) for seed in (0xA1C0, 1)])
+    lz4_blobs_in = ([host_lz4.compress(c) for c in lz4_raws] + lz4_full_blobs
+                    + lz4_malformed_cases(host_lz4.compress)
+                    + [b for b, _, _ in LZ4_EDGE_BLOCKS])
+    want_lz4 = []
+    for b in lz4_blobs_in:
+        try:
+            want_lz4.append(host_lz4.decompress(b, CHUNK))
+        except MalformedInputException:
+            want_lz4.append(None)
+    lz_comp, lz_comp_lens = to_device_batch(
+        *_pack(lz4_blobs_in, _round_up(max(map(len, lz4_blobs_in)), 16)), dev)
+    lz4_decode_err = 0
+    for out_cap in (CHUNK, 4096):
+        k_d = lz4_decode.decode(lz_comp, lz_comp_lens, out_cap=out_cap)
+        p_d = lz4_decode.decode_plain(lz_comp, lz_comp_lens, out_cap=out_cap)
+        torch.cuda.synchronize()
+        for name, k, p in zip(("out", "out_lens", "ok"), k_d, p_d):
+            require(torch.equal(k, p), f"lz4 decode {name} equal plain at out_cap {out_cap}")
+        lz4_decode_err = max(lz4_decode_err, int((k_d[0].int() - p_d[0].int()).abs().max()))
+        got_ok = k_d[2].tolist()
+        require(got_ok == [w is not None and len(w) <= out_cap for w in want_lz4],
+                f"lz4 decode flags exactly what the host decoder rejects at {out_cap}")
+        lens = k_d[1].tolist()
+        for i, w in enumerate(want_lz4):
+            if w is not None:
+                require(k_d[0][i, :min(len(w), out_cap)].cpu().numpy().tobytes()
+                        == w[:out_cap], f"lz4 decode case {i} equals its original")
+        edge = list(zip(got_ok, lens))[-len(LZ4_EDGE_BLOCKS):]
+        require(edge == [(ok, n) for _, ok, n in LZ4_EDGE_BLOCKS],
+                f"lz4 decode gives the Pallas kernel's ok and out_lens on the F6 "
+                f"blocks: {edge}")
+    print(f"lz4 decode: {len(lz4_blobs_in)} chunks ({want_lz4.count(None)} "
+          f"malformed) at out_cap {CHUNK} and 4096, kernel == plain, "
+          f"max_abs_err {lz4_decode_err}; F6 blocks as the Pallas kernel")
+
+    xxh32_err = 0
+    grid32 = list(range(101)) + [CHUNK - 1, CHUNK]
+    for width in (CHUNK, CHUNK - 3):  # 4-byte aligned rows, then unaligned
+        data = torch.from_numpy(
+            rng.integers(0, 256, (len(grid32), width), dtype=np.uint8)).to(dev)
+        lens = torch.tensor([min(n, width) for n in grid32], dtype=torch.int32,
+                            device=dev)
+        k_h, p_h = xxhash.xxh32(data, lens).tolist(), xxhash.xxh32_plain(data, lens).tolist()
+        host = data.cpu().numpy()
+        s_h = [host_xxh32(host[i, :n]) for i, n in enumerate(lens.tolist())]
+        xxh32_err = max([xxh32_err] + [abs(a - b) for a, b in zip(k_h, p_h)])
+        require(k_h == p_h == s_h, f"xxh32 kernel == plain == scalar at L={width}")
+    print(f"xxh32: {2 * len(grid32)} streams, kernel == plain == scalar, "
+          f"max_abs_err {xxh32_err}")
 
     codec = SnappyBatchCodec()  # the card by default; its canaries run here
     short = [c for c in cases if len(c) <= CHUNK]
@@ -416,6 +555,70 @@ def main() -> None:
           f"{gbps(len(data), t_framed * 1e3):.3f} GB/s); of which frame walk "
           f"and packing {t_walk:.4f} s")
 
+    print("== LZ4 path at real size (generated corpus)", flush=True)
+    want_hash32 = [host_xxh32(c) for c in corpus]
+    lz4_codec = Lz4BatchCodec()  # the card by default; its canaries run here
+    lz4_encode.launches = lz4_encode.rows = lz4_decode.launches = lz4_decode.rows = 0
+    xxhash.xxh32_launches = xxhash.xxh32_rows = 0
+    t0 = time.perf_counter()
+    lz4_blobs = lz4_codec.compress_chunks(corpus)
+    t_lz4_compress = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lz4_decoded = lz4_codec.decompress_chunks(lz4_blobs)
+    t_lz4_decompress = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lzb_comp, lzb_comp_lens, lzb_eok = lz4_encode.encode(big_raw, big_raw_lens)
+    lzb_out, lzb_out_lens, lzb_ok = lz4_decode.decode(lzb_comp, lzb_comp_lens)
+    lzb_hash = xxhash.xxh32(lzb_out, lzb_out_lens)
+    torch.cuda.synchronize()
+    t_lz4_big = time.perf_counter() - t0
+    lz4_counts = {"lz4_encode": lz4_encode.launches, "lz4_decode": lz4_decode.launches,
+                  "xxh32": xxhash.xxh32_launches}
+    lz4_rows = {"lz4_encode": lz4_encode.rows, "lz4_decode": lz4_decode.rows,
+                "xxh32": xxhash.xxh32_rows}
+
+    n_lz4 = len(corpus) + big_raw.shape[0]
+    require(all(n > 0 for n in lz4_counts.values()), f"the LZ4 kernels launched: "
+            f"{lz4_counts}")
+    require(lz4_rows["lz4_encode"] >= n_lz4 and lz4_rows["lz4_decode"] >= n_lz4
+            and lz4_rows["xxh32"] >= big_raw.shape[0],
+            f"every chunk went through each LZ4 kernel: {lz4_rows}")
+    require(lz4_decoded == corpus, "Lz4BatchCodec.decompress_chunks returns the corpus")
+    require(bool(lzb_eok.all()) and bool(lzb_ok.all()),
+            "every tiled chunk encodes and decodes ok in LZ4")
+    require(lzb_comp_lens.tolist() == [len(b) for b in lz4_blobs] * SUSTAIN,
+            "tiled LZ4 comp_lens equal compress_chunks' lengths")
+    require(torch.equal(lzb_comp, lzb_comp[:N_CHUNKS].repeat(SUSTAIN, 1)),
+            "every tile LZ4-encodes to the same bytes")
+    width = max(map(len, lz4_blobs))
+    require(lzb_comp[:N_CHUNKS, :width].cpu().numpy().tobytes() ==
+            b"".join(b.ljust(width, b"\0") for b in lz4_blobs),
+            "the first tile equals Lz4BatchCodec.compress_chunks' blocks")
+    require(torch.equal(lzb_out_lens, big_raw_lens) and torch.equal(lzb_out, big_raw),
+            "every tiled chunk LZ4-decodes to its original")
+    require(lzb_hash.tolist() == want_hash32 * SUSTAIN,
+            "every xxh32 of a decoded chunk equals the host's of its original")
+    for i in range(0, N_CHUNKS, N_CHUNKS // 8):
+        require(host_lz4.decompress(lz4_blobs[i], CHUNK) == corpus[i],
+                f"LZ4 corpus block {i} decodes to its original on the host")
+    t0 = time.perf_counter()
+    lz4_host_size = sum(len(host_lz4.compress(c)) for c in corpus[:16])
+    t_lz4_host16 = time.perf_counter() - t0
+    lz4_ratio = sum(map(len, lz4_blobs[:16])) / lz4_host_size
+    require(lz4_ratio <= LZ4_RATIO_LIMIT, f"LZ4 encode size / host LZ4 size "
+            f"{lz4_ratio} <= {LZ4_RATIO_LIMIT}")
+    lz4_comp_bytes = sum(map(len, lz4_blobs))
+    print(f"Lz4BatchCodec: compress_chunks {len(corpus)} chunks, "
+          f"{sum(map(len, corpus))} B -> "
+          f"{lz4_comp_bytes} B in {t_lz4_compress:.3f} s, decompress_chunks "
+          f"{t_lz4_decompress:.3f} s (host clock, canaries, staging and copies "
+          f"included)")
+    print(f"tiled x{SUSTAIN}: {big_raw.shape[0]} chunks LZ4-encoded, decoded and "
+          f"xxh32-hashed in {t_lz4_big:.3f} s (host clock, first call)")
+    print(f"size against the host LZ4 compressor on 16 chunks: {lz4_ratio:.6f} "
+          f"(limit {LZ4_RATIO_LIMIT}; host compressor {t_lz4_host16:.2f} s)")
+    print(f"LZ4 path launches {lz4_counts}, rows {lz4_rows} ({n_lz4} chunks)")
+
     print("== times (CUDA events)", flush=True)
     comp, comp_lens = to_device_batch(
         *_pack(blobs, _round_up(max(map(len, blobs)), 16)), dev)
@@ -435,16 +638,37 @@ def main() -> None:
     enc256_ms = time_ms(lambda: snappy_encode.encode(raw, raw_lens), 5)
     enc_big_ms = time_ms(lambda: snappy_encode.encode(big_raw, big_raw_lens), 3)
     crc_ms = time_ms(lambda: checksum.crc32c(out256, lens256), 5)
+    lz_comp256, lz_comp_lens256 = to_device_batch(
+        *_pack(lz4_blobs, _round_up(max(map(len, lz4_blobs)), 16)), dev)
+    lz_out256, lz_lens256 = lzb_out[:N_CHUNKS].contiguous(), lzb_out_lens[:N_CHUNKS]
+    lzd_ms, lzd_plain_ms = paired_ms(
+        lambda: lz4_decode.decode(lz_comp256, lz_comp_lens256),
+        lambda: lz4_decode.decode_plain(lz_comp256, lz_comp_lens256), 20, 3)
+    x32_ms, x32_plain_ms = paired_ms(
+        lambda: xxhash.xxh32(lz_out256, lz_lens256),
+        lambda: xxhash.xxh32_plain(lz_out256, lz_lens256), 20, 2)
+    lze_ms, lze_plain_ms = paired_ms(
+        lambda: lz4_encode.encode(*lz4_full_in),
+        lambda: lz4_encode.encode_plain(*lz4_full_in), 20, 1)
+    lzd_big_ms = time_ms(lambda: lz4_decode.decode(lzb_comp, lzb_comp_lens), 5)
+    x32_big_ms = time_ms(lambda: xxhash.xxh32(lzb_out, lzb_out_lens), 10)
+    lze256_ms = time_ms(lambda: lz4_encode.encode(raw, raw_lens), 5)
+    lze_big_ms = time_ms(lambda: lz4_encode.encode(big_raw, big_raw_lens), 3)
     raw256 = sum(map(len, corpus))  # the canary chunks fall short of 64 KB
     raw_big = raw256 * SUSTAIN
     full_bytes = sum(map(len, full))
+    lz4_full_bytes = sum(map(len, lz4_full))
     comp_big_bytes = int(big_comp_lens.sum())
+    lz_comp_big_bytes = int(lzb_comp_lens.sum())
 
     # Bounds: each input byte the function needs read once, each output
     # byte written once (the zero tails of out and comp included), at the
     # card's memory rate. These codecs do no floating-point work.
-    def enc_bound(in_bytes, b):
-        return bound_ms(in_bytes + 4 * b, b * snappy_encode.OUT_CAP + 5 * b)
+    def enc_bound(in_bytes, b, out_cap=snappy_encode.OUT_CAP):
+        return bound_ms(in_bytes + 4 * b, b * out_cap + 5 * b)
+
+    def lz4_enc_bound(in_bytes, b):
+        return enc_bound(in_bytes, b, lz4_encode.OUT_CAP)
 
     def dec_bound(comp_bytes, b):
         return bound_ms(comp_bytes + 4 * b, b * CHUNK + 5 * b)
@@ -473,6 +697,27 @@ def main() -> None:
           f"{gbps(decoded_bytes, dec_big_ms + xxh_big_ms):.3f} GB/s")
     print(f"crc32c (plain tensor ops), {N_CHUNKS} chunks: {crc_ms:.4f} ms "
           f"({gbps(raw256, crc_ms):.3f} GB/s)")
+    print(f"lz4 encode, {len(lz4_full)} chunks at width {CHUNK} ({lz4_full_bytes} B "
+          f"in): kernel {lze_ms:.4f} ms, plain {lze_plain_ms:.4f} ms")
+    for b, ms, nbytes, bnd in (
+            (N_CHUNKS, lze256_ms, raw256, lz4_enc_bound(raw256, N_CHUNKS)),
+            (big_raw.shape[0], lze_big_ms, raw_big, lz4_enc_bound(raw_big, big_raw.shape[0]))):
+        print(f"lz4 encode, {b} chunks ({nbytes} B in): kernel {ms:.4f} ms "
+              f"({gbps(nbytes, ms):.3f} GB/s in), bound {bnd:.5f} ms")
+    print(f"lz4 decode, {N_CHUNKS} chunks ({raw256} B out): kernel {lzd_ms:.4f} ms "
+          f"({gbps(raw256, lzd_ms):.3f} GB/s), plain {lzd_plain_ms:.4f} ms, bound "
+          f"{dec_bound(lz4_comp_bytes, N_CHUNKS):.5f} ms")
+    print(f"lz4 decode, {big_raw.shape[0]} chunks ({raw_big} B out): kernel "
+          f"{lzd_big_ms:.4f} ms ({gbps(raw_big, lzd_big_ms):.3f} GB/s decoded), bound "
+          f"{dec_bound(lz_comp_big_bytes, big_raw.shape[0]):.5f} ms")
+    print(f"xxh32, {N_CHUNKS} chunks: kernel {x32_ms:.4f} ms "
+          f"({gbps(raw256, x32_ms):.3f} GB/s), plain {x32_plain_ms:.4f} ms, bound "
+          f"{xxh_bound(raw256, N_CHUNKS):.5f} ms")
+    print(f"xxh32, {big_raw.shape[0]} chunks: kernel {x32_big_ms:.4f} ms "
+          f"({gbps(raw_big, x32_big_ms):.3f} GB/s hashed), bound "
+          f"{xxh_bound(raw_big, big_raw.shape[0]):.5f} ms")
+    print(f"lz4 encode + decode + xxh32, {big_raw.shape[0]} chunks: "
+          f"{gbps(raw_big, lze_big_ms + lzd_big_ms + x32_big_ms):.3f} GB/s")
 
     kernels = [
         {"name": "snappy_decode", "route": "cuda",
@@ -503,6 +748,35 @@ def main() -> None:
          "chunks_ms": enc256_ms, "chunks_bound_ms": enc_bound(raw256, N_CHUNKS),
          "tiled_chunks": big_raw.shape[0], "tiled_ms": enc_big_ms,
          "tiled_bound_ms": enc_bound(raw_big, big_raw.shape[0])},
+        {"name": "lz4_decode", "route": "cuda",
+         "source": "aircompressor_tpu_torch/csrc/lz4_decode.cu",
+         "replaces": "aircompressor_tpu/ops/lz4_pallas_w.py:53",
+         "launches": lz4_counts["lz4_decode"], "max_abs_err": lz4_decode_err,
+         "ms": lzd_ms, "plain_ms": lzd_plain_ms,
+         "bound_ms": dec_bound(lz4_comp_bytes, N_CHUNKS), "bound_by": "bytes",
+         "library_ms": None, "batch": f"{N_CHUNKS} chunks",
+         "tiled_chunks": big_raw.shape[0], "tiled_ms": lzd_big_ms,
+         "tiled_bound_ms": dec_bound(lz_comp_big_bytes, big_raw.shape[0])},
+        {"name": "lz4_encode", "route": "cuda",
+         "source": "aircompressor_tpu_torch/csrc/lz4_encode.cu",
+         "replaces": "aircompressor_tpu/ops/lz4_encode_pallas.py:64",
+         "launches": lz4_counts["lz4_encode"], "max_abs_err": lz4_encode_err,
+         "ms": lze_ms, "plain_ms": lze_plain_ms,
+         "bound_ms": lz4_enc_bound(lz4_full_bytes, len(lz4_full)), "bound_by": "bytes",
+         "library_ms": None, "batch": f"{len(lz4_full)} chunks of <= {CHUNK} B",
+         "chunks_ms": lze256_ms, "chunks_bound_ms": lz4_enc_bound(raw256, N_CHUNKS),
+         "tiled_chunks": big_raw.shape[0], "tiled_ms": lze_big_ms,
+         "tiled_bound_ms": lz4_enc_bound(raw_big, big_raw.shape[0])},
+        {"name": "xxh32", "route": "cuda",
+         "source": "aircompressor_tpu_torch/csrc/xxh32.cu",
+         "replaces": "aircompressor_tpu/ops/xxhash_jax.py:176",
+         "note": "the JAX package's xxh32 is XLA, not a Pallas kernel",
+         "launches": lz4_counts["xxh32"], "max_abs_err": xxh32_err,
+         "ms": x32_ms, "plain_ms": x32_plain_ms,
+         "bound_ms": xxh_bound(raw256, N_CHUNKS), "bound_by": "bytes",
+         "library_ms": None, "batch": f"{N_CHUNKS} chunks",
+         "tiled_chunks": big_raw.shape[0], "tiled_ms": x32_big_ms,
+         "tiled_bound_ms": xxh_bound(raw_big, big_raw.shape[0])},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

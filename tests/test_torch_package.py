@@ -121,8 +121,23 @@ def _malformed_snappy_blobs() -> list[bytes]:
         b"\x08\x0cabcd\x01\x00", b"\x08\x0cabcd\x01\x09", b"\x08\x0cabcd\x02\x04"]
 
 
+def _malformed_lz4_blobs() -> list[bytes]:
+    """The smoke's malformed LZ4 blocks and those of its F6 blocks that the
+    host rejects, then: an unended literal-length extension, a truncated
+    offset, an unended match-length extension, an offset past the output,
+    a match past the output buffer."""
+    import chip_smoke
+    from aircompressor_tpu_torch.host import lz4 as host_lz4
+
+    return chip_smoke.lz4_malformed_cases(host_lz4.compress) + [
+        b for b, ok, _ in chip_smoke.LZ4_EDGE_BLOCKS if not ok] + [
+        b"\xf0\xff\xff", b"\x14a\x01", b"\x1fa\x01\x00\xff", b"\x14a\x02\x00\x00",
+        b"\x1fa\x01\x00" + b"\xff" * 257 + b"\x00\x00"]
+
+
 HOST_INPUTS = _host_snappy_inputs()
 MALFORMED = _malformed_snappy_blobs()
+MALFORMED_LZ4 = _malformed_lz4_blobs()
 
 
 @pytest.mark.parametrize("case", range(len(HOST_INPUTS)))
@@ -153,6 +168,46 @@ def test_port_host_snappy_rejects_as_the_jax_reference(case):
     with pytest.raises(PortMalformed) as got:
         host_snappy.decompress(blob, 65536)
     assert got.value.offset == want.value.offset
+
+
+@pytest.mark.parametrize("case", range(len(HOST_INPUTS)))
+def test_port_host_lz4_equals_the_jax_reference(case):
+    """The port's host LZ4 copy writes and reads the JAX package's
+    reference codec's bytes."""
+    from aircompressor_tpu.lz4 import Lz4RefCompressor, Lz4RefDecompressor
+    from aircompressor_tpu_torch.host import lz4 as host_lz4
+
+    raw = HOST_INPUTS[case]
+    blob = host_lz4.compress(raw)
+    assert blob == Lz4RefCompressor().compress(raw)
+    assert host_lz4.decompress(blob, len(raw)) == raw
+    assert Lz4RefDecompressor().decompress(blob, len(raw)) == raw
+
+
+@pytest.mark.parametrize("case", range(len(MALFORMED_LZ4)))
+def test_port_host_lz4_rejects_as_the_jax_reference(case):
+    """A malformed LZ4 block raises in both, at the same offset."""
+    from aircompressor_tpu.errors import MalformedInputException
+    from aircompressor_tpu.lz4 import Lz4RefDecompressor
+    from aircompressor_tpu_torch.errors import MalformedInputException as PortMalformed
+    from aircompressor_tpu_torch.host import lz4 as host_lz4
+
+    blob = MALFORMED_LZ4[case]
+    with pytest.raises(MalformedInputException) as want:
+        Lz4RefDecompressor().decompress(blob, 65536)
+    with pytest.raises(PortMalformed) as got:
+        host_lz4.decompress(blob, 65536)
+    assert got.value.offset == want.value.offset
+
+
+def test_port_host_xxh32_equals_the_jax_scalar():
+    from aircompressor_tpu.xxhash import _scalar
+    from aircompressor_tpu_torch.host.xxhash import xxh32
+
+    data = np.random.default_rng(5).integers(0, 256, 65536, dtype=np.uint8)
+    for n in list(range(101)) + [65536]:
+        assert xxh32(data[:n]) == _scalar.xxh32(data[:n]), n
+        assert xxh32(data[:n].tobytes()) == _scalar.xxh32(data[:n].tobytes()), n
 
 
 def test_port_host_xxh64_equals_the_jax_scalar():

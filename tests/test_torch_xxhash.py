@@ -1,9 +1,11 @@
-"""The port's XXH64 against the JAX package and the scalar host tier.
+"""The port's XXH64 and XXH32 against the JAX package and the scalar host tier.
 
 ``xxh64_plain`` (what the port runs for CPU tensors, and what the CUDA
 kernel is held to on the card) must equal ``(hi << 32) | lo`` of
 ``xxhash_jax.xxh64`` and of the Pallas stripe kernel ``xxhash_pallas.xxh64``
 (interpret mode here), and ``_scalar.xxh64``, exactly, over every tail class.
+``xxh32_plain`` must equal ``xxhash_jax.xxh32`` (XLA; the JAX package has no
+Pallas XXH32) and ``_scalar.xxh32`` the same way.
 """
 
 import numpy as np
@@ -76,4 +78,37 @@ def test_xxh64_rejects_bad_arguments():
                      torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError):
         xxhash.xxh64(torch.zeros((2, 8), dtype=torch.uint8),
+                     torch.zeros(3, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("seed", [0, 0x9E3779B1])
+def test_xxh32_plain_matches_xxhash_jax_and_scalar(seed):
+    lens = list(range(101)) + [127, 128, 255, 256]
+    data, lengths = _batch(256, lens, 43)
+    got = xxhash.xxh32_plain(torch.from_numpy(data), torch.from_numpy(lengths),
+                             seed=seed).tolist()
+    want = np.asarray(xxhash_jax.xxh32(jnp.asarray(data), jnp.asarray(lengths),
+                                       seed=seed)).tolist()
+    assert got == want
+    assert got == [_scalar.xxh32(data[i, :n].tobytes(), seed=seed)
+                   for i, n in enumerate(lengths)]
+
+
+@pytest.mark.parametrize("L", [0, 1, 77, 100])
+def test_xxh32_any_width_and_clamped_lengths(L):
+    """Any L (the JAX contract needs L % 128 == 0); lengths clamp to [0, L]."""
+    rng = np.random.default_rng(L + 1)
+    data = rng.integers(0, 256, (6, L), dtype=np.uint8)
+    lengths = np.array([0, L // 2, L, L + 9, -3, max(L - 1, 0)], np.int32)
+    got = xxhash.xxh32(torch.from_numpy(data), torch.from_numpy(lengths)).tolist()
+    assert got == [_scalar.xxh32(data[i, :min(max(n, 0), L)].tobytes())
+                   for i, n in enumerate(lengths)]
+
+
+def test_xxh32_rejects_bad_arguments():
+    with pytest.raises(TypeError):
+        xxhash.xxh32(torch.zeros((2, 8), dtype=torch.int32),
+                     torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        xxhash.xxh32(torch.zeros((2, 8), dtype=torch.uint8),
                      torch.zeros(3, dtype=torch.int32))
