@@ -6,17 +6,19 @@ C++ kernel here (``csrc/``), built on first use by ``_build`` and bound with
 ctypes, beside a plain PyTorch version that runs for tensors on the CPU. It
 imports neither JAX nor ``aircompressor_tpu``: the host code it needs (the
 Snappy and LZ4 reference codecs, the x-snappy-framed walk and a framer,
-CRC32-C and the scalar XXH32 and XXH64) is its own copy, in ``host``.
+CRC32-C, the scalar XXH32 and XXH64, and the zstd host decoder, planner and
+encoder) is its own copy, in ``host``.
 
-Ported so far: batched Snappy and LZ4 block decode and encode, XXH64, XXH32
-and CRC32-C (``ops``); the user surface ``ops.batch`` (``SnappyBatchCodec``
-and ``Lz4BatchCodec`` with ``compress_chunks`` and ``decompress_chunks``,
-and ``snappy_framed_decompress_device``); the main-path entry
-``entry.entry``. Entry points run on the card unless given
-``device="cpu"``.
+Ported so far: batched Snappy and LZ4 block decode and encode, batched zstd
+decode, XXH64, XXH32 and CRC32-C (``ops``); the user surface ``ops.batch``
+(``SnappyBatchCodec`` and ``Lz4BatchCodec`` with ``compress_chunks`` and
+``decompress_chunks``, ``ZstdBatchCodec.decompress_chunks``, and
+``snappy_framed_decompress_device``); the main-path entry ``entry.entry``.
+Entry points run on the card unless given ``device="cpu"``. ``data`` holds
+the fixtures of the checks.
 """
 
-__all__ = ["entry", "errors", "host", "ops"]
+__all__ = ["data", "entry", "errors", "host", "ops"]
 
 
 def __getattr__(name):

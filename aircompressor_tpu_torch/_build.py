@@ -26,6 +26,7 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry -> argument types; each returns its cudaGetLastError() as an int.
 _SIGNATURES = {
     "acx_snappy_decode": [_P, _P, _I, _I, _P, _P, _P, _I, _P],
@@ -34,6 +35,9 @@ _SIGNATURES = {
     "acx_lz4_decode": [_P, _P, _I, _I, _P, _P, _P, _I, _P],
     "acx_lz4_encode": [_P, _P, _I, _I, _P, _P, _P, _P],
     "acx_xxh32": [_P, _P, _I, _I, _P, _P],
+    "acx_zstd_huffman": [_P, _L, _P, _P, _I, _P, _P, _P],
+    "acx_zstd_fse": [_P, _L, _P, _P, _P, _I, _P, _P, _P, _P],
+    "acx_zstd_execute": [_P, _L, _P, _L, _P, _P, _P, _I, _P, _I, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,14 +1,15 @@
-"""Batched Snappy and LZ4 on a torch device: the user surface over the kernels.
+"""Batched Snappy, LZ4 and zstd on a torch device: the user surface over the
+kernels.
 
 Counterpart of ``aircompressor_tpu.ops.batch``'s ``SnappyBatchCodec``,
-``Lz4BatchCodec`` and ``snappy_framed_decompress_device``. Every chunk goes
-to the kernels: the decode kernels read their input from device memory and
-have no limit on the compressed length, so there is no host tier for large
-blobs, and every chunk to compress goes through an encode kernel. Before
-its first batch each way, a codec runs a 64 KB canary through the kernel
-and raises if the bytes differ; there is no fallback. A codec runs on the
-card unless it is given ``device="cpu"``, where the plain PyTorch versions
-run.
+``Lz4BatchCodec``, ``ZstdBatchCodec`` (decode) and
+``snappy_framed_decompress_device``. Every chunk goes to the kernels: the
+decode kernels read their input from device memory and have no limit on the
+compressed length, so there is no host tier for large blobs, and every
+chunk to compress goes through an encode kernel. Before its first batch
+each way, a codec runs a 64 KB canary through the kernels and raises if the
+bytes differ; there is no fallback. A codec runs on the card unless it is
+given ``device="cpu"``, where the plain PyTorch versions run.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ import torch
 from ..errors import MalformedInputException
 from ..host import framed, lz4 as host_lz4, snappy as host_snappy
 from ..host.crc32c import crc32c_raw, mask_crc
-from . import checksum, lz4_decode, lz4_encode, snappy_decode, snappy_encode
+from ..host.zstd import frame_enc as host_zstd_enc
+from . import checksum, lz4_decode, lz4_encode, snappy_decode, snappy_encode, zstd_decode
 
 CHUNK = 65536
 
@@ -69,6 +71,13 @@ def _canary(host) -> tuple[bytes, bytes]:
     """The canary payload and its block from a host reference codec."""
     payload = _selfcheck_payload()
     return payload, host.compress(payload)
+
+
+@functools.cache
+def _zstd_canary() -> tuple[bytes, bytes]:
+    """The canary payload and its frame from the host zstd encoder."""
+    payload = _selfcheck_payload()
+    return payload, host_zstd_enc.compress_bytes(payload)
 
 
 def to_device_batch(buf: np.ndarray, lens: np.ndarray, device):
@@ -177,6 +186,42 @@ class Lz4BatchCodec(_BlockBatchCodec):
     ``max_chunk`` bytes, on ``device`` (the card by default)."""
 
     name, host, decoder, encoder = "lz4", host_lz4, lz4_decode, lz4_encode
+
+
+class ZstdBatchCodec:
+    """Frame-parallel zstd decode of single-frame blobs of up to ``max_chunk``
+    bytes each, on ``device`` (the card by default), through the three
+    kernels of ``zstd_decode``; every frame goes through them, with no host
+    fallback. Encoding is not ported yet."""
+
+    def __init__(self, max_chunk: int = CHUNK, *, device="cuda"):
+        if max_chunk > CHUNK:
+            raise ValueError(f"zstd device chunks are capped at {CHUNK} bytes")
+        self.max_chunk = max_chunk
+        self.device = torch.device(device)
+        self._decode_checked = False
+
+    def _decode_self_check(self) -> None:
+        payload, frame = _zstd_canary()
+        out = zstd_decode.decode_batch([frame], device=self.device)
+        if out != [payload]:
+            raise RuntimeError(f"zstd decode failed its self-check on {self.device}")
+        self._decode_checked = True
+
+    def compress_chunks(self, chunks: Sequence[bytes]) -> list[bytes]:
+        raise NotImplementedError(
+            "the zstd device encoder is not ported yet (ROADMAP Queue 1 item 10)")
+
+    def decompress_chunks(self, blobs: Sequence[bytes]) -> list[bytes]:
+        """Decode each blob, one zstd frame each; raises
+        MalformedInputException naming the index of the first frame that is
+        malformed, over ``max_chunk``, or fails its checksum."""
+        if not blobs:
+            return []
+        if not self._decode_checked:
+            self._decode_self_check()
+        return zstd_decode.decode_batch(blobs, out_cap=self.max_chunk,
+                                        device=self.device)
 
 
 def snappy_framed_decompress_device(data: bytes, verify_checksums: bool = True,

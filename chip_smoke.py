@@ -20,10 +20,17 @@ read just after:
   ``snappy_framed_decompress_device``;
 - LZ4: ``Lz4BatchCodec.compress_chunks`` and ``decompress_chunks`` on the
   corpus, and the corpus tiled 16 times through the LZ4 encode kernel, the
-  LZ4 decode kernel and the xxh32 kernel.
+  LZ4 decode kernel and the xxh32 kernel;
+- zstd: the corpus through the port's host encoder at level 3,
+  ``ZstdBatchCodec.decompress_chunks`` on its frames, then the frames tiled
+  16 times, planned once, through the Huffman, FSE and execute kernels and
+  the xxh64 kernel.
 
-Every byte and hash is checked against the originals and the port's host
-reference codecs. It prints the card's name and power limit, kernel and
+The three zstd kernels are first held against their plain versions on one
+batch of frames from the host encoder, the libzstd fixture (multi-block
+frames whose sequences use repeat offsets of earlier blocks) and malformed
+frames. Every byte and hash is checked against the originals and the port's
+host reference codecs. It prints the card's name and power limit, kernel and
 plain times, then one JSON line of per-kernel results, and last ``{"ok":
 true, "device": {...}}``. Any failed check raises, so the exit code is not
 0 and that last line is not printed. With no CUDA device it fails at once;
@@ -43,6 +50,8 @@ CHUNK = 65536
 N_CHUNKS = 256  # the generated corpus: 256 chunks of 64 KB, 16 MB
 SUSTAIN = 16  # device-side tiling of the corpus: 4096 chunks, 256 MB
 ENC_CUT = 8192  # the cut of the synthetic encode cases
+ZSTD_CUT = 8192  # the cut of the synthetic zstd decode cases
+ZSTD_ENCODE_BUDGET_S = 60  # host encoder time past which 64 chunks are tiled
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 RATIO_LIMIT = 1.03  # encode size against the host reference compressor
 LZ4_RATIO_LIMIT = 1.01  # LZ4 encode size against the host LZ4 compressor on 16
@@ -171,6 +180,53 @@ def lz4_full_cases(corpus: list[bytes]) -> list[bytes]:
     return [corpus[0], corpus[4], corpus[100], corpus[37][:40000], noise, runs]
 
 
+def zstd_cases() -> list[bytes]:
+    """The originals of the zstd comparison batch: the synthetic cases and
+    two canary tails (text, then 8 KB of random bytes), each cut to
+    ZSTD_CUT bytes."""
+    from aircompressor_tpu_torch.ops.batch import _selfcheck_payload
+
+    return [c[:ZSTD_CUT] for _, c in synthetic_cases()] + [
+        _selfcheck_payload(seed)[-ZSTD_CUT - 2000:][:ZSTD_CUT] for seed in (0xA1C0, 1)]
+
+
+def zstd_malformed_cases() -> list[tuple[str, bytes, str]]:
+    """zstd frames that pass the planner and that the decode must reject,
+    each with its name and the reason the decode gives: a Huffman stream
+    cut short (the jump table moves a byte from stream 1 to stream 2), a
+    flipped bit in the sequences, an offset past the frame's start, a
+    declared content size one more than the output, and a flipped checksum
+    bit. The host decoders reject each as well."""
+    from aircompressor_tpu_torch.host.zstd import device_prep, frame_enc, seq_enc
+    from aircompressor_tpu_torch.ops.batch import _selfcheck_payload
+
+    good = frame_enc.compress_bytes(_selfcheck_payload(9)[:6000])
+    plan = device_prep.plan_batch([good], CHUNK)
+
+    def edit(pos: int, new: bytes) -> bytes:
+        return good[:pos] + new + good[pos + len(new):]
+
+    jump = plan.huff_streams[0].byte_lo - 6
+    s1, s2 = int.from_bytes(good[jump:jump + 2], "little"), int.from_bytes(
+        good[jump + 2:jump + 4], "little")
+    short = edit(jump, (s1 - 1).to_bytes(2, "little") + (s2 + 1).to_bytes(2, "little"))
+    seq_at = plan.seq_streams[0].byte_lo + 9
+    flipped = edit(seq_at, bytes([good[seq_at] ^ 1]))
+    # 4 raw literals, then one sequence: 4 literals, offset 10, match of 4
+    seqs, _ = seq_enc.compress_sequences(np.array([4]), np.array([13]), np.array([4]))
+    body = bytes([4 << 3]) + b"abcd" + seqs
+    far = (frame_enc.MAGIC.to_bytes(4, "little") + bytes([0, 0])  # 1 KB window
+           + frame_enc._block_header(1, 2, len(body)) + body)
+    size = edit(5, (int.from_bytes(good[5:7], "little") + 1).to_bytes(2, "little"))
+    checksum = edit(len(good) - 1, bytes([good[-1] ^ 0x80]))
+    bad_frame = "malformed zstd frame in device batch"
+    return [("short Huffman stream", short, bad_frame),
+            ("flipped sequences bit", flipped, bad_frame),
+            ("offset past the frame start", far, bad_frame),
+            ("content size mismatch", size, bad_frame),
+            ("flipped checksum", checksum, "frame checksum mismatch (device decode)")]
+
+
 def require(cond, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
@@ -205,8 +261,217 @@ def bound_ms(read_bytes: int, write_bytes: int) -> float:
     return (read_bytes + write_bytes) / HBM_BYTES_PER_S * 1e3
 
 
+def zstd_bound_ms(plan, kernel: str) -> float:
+    """The bytes bound of one zstd kernel on a batch plan: each stream,
+    section, table entry, triple and literal that it needs read once, each
+    output written once."""
+    if kernel == "zstd_huffman":  # the streams, the walk's 29 words and the
+        # permutation in; the literals and final bit counts out
+        return bound_ms(sum((h.rem_init + 8) // 8 + 4 * 29 + 256 for h in plan.huff_streams),
+                        sum(h.nsym + 4 for h in plan.huff_streams))
+    if kernel == "zstd_fse":  # the sections, 7 words and the FSE entries of
+        # their table sizes in; the triples, bit counts and flags out
+        return bound_ms(sum((s.rem_init + s.ll_log + s.of_log + s.ml_log + 8) // 8 + 4 * 7
+                            + 4 * ((1 << s.ll_log) + (1 << s.of_log) + (1 << s.ml_log))
+                            for s in plan.seq_streams),
+                        sum(12 * s.nseq + 8 for s in plan.seq_streams))
+    blocks = [bp for fp in plan.frames for bp in fp.blocks]  # zstd_execute: the
+    # triples, the literals (not RLE ones), the block rows in; the rows out
+    lits = sum(bp.lit_total for bp in blocks if bp.piece_kind[0] != 2)
+    return bound_ms(sum(12 * bp.n_seq + 64 for bp in blocks) + lits + 8 * len(plan.frames),
+                    len(plan.frames) * (plan.out_cap + 5))
+
+
 def gbps(nbytes, ms):
     return nbytes / ms / 1e6
+
+
+def zstd_kernels_against_plain(dev) -> dict:
+    """Hold the three zstd kernels to their plain versions on one batch: the
+    zstd cases through the host encoder, the libzstd fixture and the
+    malformed cases. Then decode the batch through all three and check every
+    frame: the good ones give their originals, the malformed ones are
+    rejected as their cases say."""
+    from aircompressor_tpu_torch.data import libzstd_frames, zstandard_version
+    from aircompressor_tpu_torch.host.zstd import device_prep, frame_enc
+    from aircompressor_tpu_torch.ops import zstd_decode
+
+    print("== zstd kernels against plain on the card", flush=True)
+    raws, fixture, bad = zstd_cases(), libzstd_frames(), zstd_malformed_cases()
+    items = ([frame_enc.compress_bytes(r) for r in raws]
+             + [f["frame"] for f in fixture] + [b for _, b, _ in bad])
+    want = raws + [f["original"] for f in fixture]
+    plan = device_prep.plan_batch(items, CHUNK)
+    pk = zstd_decode.pack(plan, dev)
+    h_args, s_args, _ = zstd_args(pk)
+    k_h = zstd_decode.huffman_decode(*h_args)
+    k_s = zstd_decode.fse_sequences(*s_args)
+    t0 = time.perf_counter()
+    p_h = zstd_decode.huffman_decode_plain(*h_args)
+    p_s = zstd_decode.fse_sequences_plain(*s_args)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    x_args = (pk.src, p_h[0], p_s[0], pk.b_frames, pk.blocks)
+    k_x = zstd_decode.execute(*x_args)
+    p_x = zstd_decode.execute_plain(*x_args)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, ks, ps in (("zstd_huffman", k_h, p_h), ("zstd_fse", k_s, p_s),
+                         ("zstd_execute", k_x, p_x)):
+        for k, p in zip(ks, ps):
+            require(torch.equal(k, p), f"{name} kernel == plain")
+        errs[name] = max(int((k.long() - p.long()).abs().max()) if k.numel() else 0
+                         for k, p in zip(ks, ps))
+
+    res = zstd_decode.decode_plan(pk)
+    ok, checksum_ok = res["ok"].tolist(), res["checksum_ok"].tolist()
+    lens = res["out_len"].tolist()
+    n_good = len(want)
+    require(all(ok[:n_good]) and all(checksum_ok[:n_good]), "every good zstd frame ok")
+    for i, w in enumerate(want):
+        require(lens[i] == len(w) and res["out"][i, :len(w)].cpu().numpy().tobytes() == w,
+                f"zstd frame {i} decodes to its original")
+    for (name, _, reason), ok_i, cks_i in zip(bad, ok[n_good:], checksum_ok[n_good:]):
+        by_checksum = reason.startswith("frame checksum")
+        require(ok_i and not cks_i if by_checksum else not ok_i,
+                f"zstd malformed case '{name}' rejected: ok {ok_i}, checksum_ok {cks_i}")
+    later = sum(bp.n_seq > 0 for f, fp in zip(fixture, plan.frames[len(raws):])
+                if f["flush"] for bp in fp.blocks[1:])
+    print(f"zstd: {len(items)} frames ({len(raws)} from the host encoder, {len(fixture)} "
+          f"from libzstd {zstandard_version()}, {len(bad)} malformed); "
+          f"{len(plan.huff_streams)} Huffman streams, {len(plan.seq_streams)} sequences "
+          f"sections, {later} of them after the first block of a multi-block libzstd "
+          f"frame; kernel == plain, max_abs_err {errs}; huffman + fse plain "
+          f"{t_plain:.2f} s (host clock)")
+    return dict(n_frames=len(items), plan=plan, pk=pk, errs=errs)
+
+
+def zstd_args(pk) -> tuple:
+    """The three zstd kernels' arguments on a packed batch; the execute
+    kernel's literals and triples come from the other two kernels."""
+    from aircompressor_tpu_torch.ops import zstd_decode
+
+    h_args = (pk.src, pk.h_params, pk.h_perm, pk.lit_size)
+    s_args = (pk.src, pk.s_params, pk.s_tabs, pk.s_frames, pk.seq_slots)
+    lit, _ = zstd_decode.huffman_decode(*h_args)
+    seq3, _, _ = zstd_decode.fse_sequences(*s_args)
+    return h_args, s_args, (pk.src, lit, seq3, pk.b_frames, pk.blocks)
+
+
+def zstd_decode_path(dev, corpus: list[bytes], sustain: int = SUSTAIN) -> dict:
+    """The zstd decode path: the corpus through the host encoder at level 3,
+    ``ZstdBatchCodec.decompress_chunks`` on its frames, then the frames tiled
+    ``sustain`` times, planned once and run through the three kernels and
+    the xxh64 kernel, with the launch counts set to 0 just before and read
+    just after. Every byte and every XXH64 is checked."""
+    from aircompressor_tpu_torch.host.xxhash import xxh64 as host_xxh64
+    from aircompressor_tpu_torch.host.zstd import device_prep, frame_enc
+    from aircompressor_tpu_torch.ops import xxhash, zstd_decode
+    from aircompressor_tpu_torch.ops.batch import ZstdBatchCodec, _pack, to_device_batch
+
+    print("== zstd decode path at real size (generated corpus)", flush=True)
+    n = len(corpus)
+    t0 = time.perf_counter()
+    frames = [frame_enc.compress_bytes(c, 3) for c in corpus[:8]]
+    per_chunk = (time.perf_counter() - t0) / 8
+    if per_chunk * n > ZSTD_ENCODE_BUDGET_S and n > 64:  # a slow host: 64, tiled
+        frames += [frame_enc.compress_bytes(c, 3) for c in corpus[8:64]]
+        frames, corpus = (frames * n)[:n], (corpus[:64] * n)[:n]
+        print(f"host encoder at {per_chunk:.3f} s a chunk: encoded 64 chunks, tiled to {n}")
+    else:
+        frames += [frame_enc.compress_bytes(c, 3) for c in corpus[8:]]
+    t_encode = time.perf_counter() - t0
+    raw, raw_lens = to_device_batch(*_pack(corpus, CHUNK), dev)
+    big_raw, big_lens = raw.repeat(sustain, 1), raw_lens.repeat(sustain)
+    want_hash = [host_xxh64(c) for c in corpus] * sustain
+
+    codec = ZstdBatchCodec(device=dev)  # its canary runs on the path
+    zstd_decode.huffman_launches = zstd_decode.fse_launches = 0
+    zstd_decode.execute_launches = zstd_decode.execute_frames = xxhash.launches = 0
+    t0 = time.perf_counter()
+    decoded = codec.decompress_chunks(frames)
+    t_codec = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    big_plan = device_prep.plan_batch(frames * sustain, CHUNK, item_errors=True)
+    t_plan_big = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    big_pk = zstd_decode.pack(big_plan, dev)
+    torch.cuda.synchronize()
+    t_pack_big = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    big = zstd_decode.decode_plan(big_pk)
+    torch.cuda.synchronize()
+    t_big = time.perf_counter() - t0
+    counts = {"zstd_huffman": zstd_decode.huffman_launches,
+              "zstd_fse": zstd_decode.fse_launches,
+              "zstd_execute": zstd_decode.execute_launches, "xxh64": xxhash.launches}
+    exec_frames = zstd_decode.execute_frames
+
+    n_all = 1 + n + n * sustain  # the canary, then the two batches
+    require(all(c > 0 for c in counts.values()), f"the zstd kernels launched: {counts}")
+    require(exec_frames == n_all,
+            f"every zstd frame went through the kernels: {exec_frames}/{n_all}")
+    require(decoded == corpus, "ZstdBatchCodec.decompress_chunks returns the corpus")
+    require(bool(big["ok"].all()) and bool(big["checksum_ok"].all()),
+            "every tiled zstd frame decodes ok with its checksum")
+    require(torch.equal(big["out_len"], big_lens) and torch.equal(big["out"], big_raw),
+            "every tiled zstd frame decodes to its original")
+    require([v & (2**64 - 1) for v in big["digest"].tolist()] == want_hash,
+            "every xxh64 of a decoded zstd frame equals the host's of its original")
+    t0 = time.perf_counter()
+    plan = device_prep.plan_batch(frames, CHUNK)
+    t_plan = time.perf_counter() - t0
+    print(f"host zstd encoder: {n} frames, {sum(map(len, corpus))} B -> "
+          f"{sum(map(len, frames))} B in {t_encode:.2f} s (host clock)")
+    print(f"ZstdBatchCodec.decompress_chunks: {n} frames in {t_codec:.3f} s (host clock, "
+          f"canary, planner, staging and copies included); planner alone {t_plan:.3f} s")
+    print(f"tiled x{sustain}: {len(big_plan.frames)} frames: planner {t_plan_big:.3f} s, "
+          f"packing and upload {t_pack_big:.3f} s, kernels and xxh64 {t_big:.3f} s (host "
+          f"clock, first call); {len(big_plan.huff_streams)} Huffman streams, "
+          f"{len(big_plan.seq_streams)} sequences sections")
+    print(f"zstd path launches {counts}, {exec_frames} of {n_all} frames through the "
+          f"execute kernel")
+    return dict(plan=plan, pk=zstd_decode.pack(plan, dev), big_plan=big_plan,
+                big_pk=big_pk, counts=counts, t_plan_big=t_plan_big,
+                decoded_bytes=int(big_lens.sum()))
+
+
+def zstd_kernel_times(zk: dict, zp: dict) -> list[dict]:
+    """Time each zstd kernel by CUDA events on the comparison batch (beside
+    its plain version, in turns), on the corpus's frames and on the tiled
+    frames, each beside its bytes bound; return their lines of the kernels
+    JSON."""
+    from aircompressor_tpu_torch.ops import zstd_decode
+
+    fns = {"zstd_huffman": (zstd_decode.huffman_decode, zstd_decode.huffman_decode_plain, 103),
+           "zstd_fse": (zstd_decode.fse_sequences, zstd_decode.fse_sequences_plain, 277),
+           "zstd_execute": (zstd_decode.execute, zstd_decode.execute_plain, 543)}
+    plans = (zk["plan"], zp["plan"], zp["big_plan"])
+    args = [zstd_args(pk) for pk in (zk["pk"], zp["pk"], zp["big_pk"])]
+    entries, total_big = [], 0.0
+    for k, (name, (fn, plain, line)) in enumerate(fns.items()):
+        small, mid, big = (a[k] for a in args)
+        ms, plain_ms = paired_ms(lambda: fn(*small), lambda: plain(*small), 10, 1)
+        ms_mid, ms_big = time_ms(lambda: fn(*mid), 10), time_ms(lambda: fn(*big), 3)
+        b_small, b_mid, b_big = (zstd_bound_ms(plan, name) for plan in plans)
+        total_big += ms_big
+        n_small, n_mid, n_big = (len(plan.frames) for plan in plans)
+        print(f"{name}: {n_small} frames (the comparison batch): kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {b_small:.5f} ms; {n_mid} frames: kernel "
+              f"{ms_mid:.4f} ms, bound {b_mid:.5f} ms; {n_big} frames: kernel "
+              f"{ms_big:.4f} ms, bound {b_big:.5f} ms")
+        entries.append({
+            "name": name, "route": "cuda", "source": f"aircompressor_tpu_torch/csrc/{name}.cu",
+            "replaces": f"aircompressor_tpu/ops/zstd_pallas.py:{line}",
+            "launches": zp["counts"][name], "max_abs_err": zk["errs"][name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_small, "bound_by": "bytes",
+            "library_ms": None, "batch": f"{n_small} frames of <= 16 KB",
+            "chunks": n_mid, "chunks_ms": ms_mid, "chunks_bound_ms": b_mid,
+            "tiled_chunks": n_big, "tiled_ms": ms_big, "tiled_bound_ms": b_big})
+    print(f"zstd huffman + fse + execute, {len(zp['big_plan'].frames)} frames: "
+          f"{gbps(zp['decoded_bytes'], total_big):.3f} GB/s decoded (kernels alone; the "
+          f"host planner took {zp['t_plan_big']:.3f} s)")
+    return entries
 
 
 def main() -> None:
@@ -408,6 +673,8 @@ def main() -> None:
         require(k_h == p_h == s_h, f"xxh32 kernel == plain == scalar at L={width}")
     print(f"xxh32: {2 * len(grid32)} streams, kernel == plain == scalar, "
           f"max_abs_err {xxh32_err}")
+
+    zk = zstd_kernels_against_plain(dev)
 
     codec = SnappyBatchCodec()  # the card by default; its canaries run here
     short = [c for c in cases if len(c) <= CHUNK]
@@ -619,6 +886,8 @@ def main() -> None:
           f"(limit {LZ4_RATIO_LIMIT}; host compressor {t_lz4_host16:.2f} s)")
     print(f"LZ4 path launches {lz4_counts}, rows {lz4_rows} ({n_lz4} chunks)")
 
+    zp = zstd_decode_path(dev, corpus)
+
     print("== times (CUDA events)", flush=True)
     comp, comp_lens = to_device_batch(
         *_pack(blobs, _round_up(max(map(len, blobs)), 16)), dev)
@@ -719,6 +988,8 @@ def main() -> None:
     print(f"lz4 encode + decode + xxh32, {big_raw.shape[0]} chunks: "
           f"{gbps(raw_big, lze_big_ms + lzd_big_ms + x32_big_ms):.3f} GB/s")
 
+    z_entries = zstd_kernel_times(zk, zp)
+
     kernels = [
         {"name": "snappy_decode", "route": "cuda",
          "source": "aircompressor_tpu_torch/csrc/snappy_decode.cu",
@@ -778,6 +1049,7 @@ def main() -> None:
          "tiled_chunks": big_raw.shape[0], "tiled_ms": x32_big_ms,
          "tiled_bound_ms": xxh_bound(raw_big, big_raw.shape[0])},
     ]
+    kernels += z_entries
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,13 +18,18 @@ from aircompressor_tpu_torch.host import snappy as host_snappy
 from aircompressor_tpu_torch.host.crc32c import crc32c_raw
 from aircompressor_tpu_torch.host.xxhash import xxh32 as host_xxh32
 from aircompressor_tpu_torch.host.xxhash import xxh64 as host_xxh64
+from aircompressor_tpu_torch.data import libzstd_frames
+from aircompressor_tpu_torch.host.zstd import device_prep
+from aircompressor_tpu_torch.host.zstd import frame_enc as host_zstd_enc
 from aircompressor_tpu_torch.ops import (
-    checksum, lz4_decode, lz4_encode, snappy_decode, snappy_encode, xxhash)
+    checksum, lz4_decode, lz4_encode, snappy_decode, snappy_encode, xxhash,
+    zstd_decode)
 from aircompressor_tpu_torch.ops.batch import (
-    Lz4BatchCodec, SnappyBatchCodec, _pack, _selfcheck_payload,
+    Lz4BatchCodec, SnappyBatchCodec, ZstdBatchCodec, _pack, _selfcheck_payload,
     snappy_framed_decompress_device, to_device_batch)
 from chip_smoke import (
-    LZ4_EDGE_BLOCKS, backward_cap_case, lz4_length_edges_case, lz4_malformed_cases)
+    LZ4_EDGE_BLOCKS, backward_cap_case, lz4_length_edges_case, lz4_malformed_cases,
+    zstd_cases, zstd_malformed_cases)
 
 pytestmark = pytest.mark.cuda
 
@@ -220,3 +225,78 @@ def test_lz4_codec_round_trip_on_device(device, synthetic):
     assert lz4_decode.rows - before[1] >= len(raws)
     assert [host_lz4.decompress(b, 65536) for b in blobs[-2:]] == raws[-2:]
     assert codec.decompress_chunks([host_lz4.compress(r) for r in raws]) == raws
+
+
+def _zstd_batch(device):
+    """Frames of the synthetic cases, the libzstd fixture and the malformed
+    cases, packed on ``device``, with the originals of the good ones."""
+    raws = zstd_cases()
+    fixture = libzstd_frames()
+    frames = ([host_zstd_enc.compress_bytes(r) for r in raws]
+              + [f["frame"] for f in fixture]
+              + [b for _, b, _ in zstd_malformed_cases()])
+    plan = device_prep.plan_batch(frames, 65536)
+    return raws + [f["original"] for f in fixture], zstd_decode.pack(plan, device)
+
+
+def test_zstd_huffman_kernel_equals_plain(device):
+    _, pk = _zstd_batch(device)
+    before = zstd_decode.huffman_launches
+    got = zstd_decode.huffman_decode(pk.src, pk.h_params, pk.h_perm, pk.lit_size)
+    assert zstd_decode.huffman_launches == before + 1
+    want = zstd_decode.huffman_decode_plain(pk.src, pk.h_params, pk.h_perm, pk.lit_size)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert torch.equal(g, w)
+    assert int((got[1] != 0).sum()) == 2  # the short stream and the one after it
+
+
+def test_zstd_fse_kernel_equals_plain(device):
+    _, pk = _zstd_batch(device)
+    args = (pk.src, pk.s_params, pk.s_tabs, pk.s_frames, pk.seq_slots)
+    before = zstd_decode.fse_launches
+    got = zstd_decode.fse_sequences(*args)
+    assert zstd_decode.fse_launches == before + 1
+    for g, w in zip(got, zstd_decode.fse_sequences_plain(*args)):
+        assert g.device.type == "cuda"
+        assert torch.equal(g, w)
+
+
+def test_zstd_execute_kernel_equals_plain(device):
+    raws, pk = _zstd_batch(device)
+    lit, _ = zstd_decode.huffman_decode_plain(pk.src, pk.h_params, pk.h_perm, pk.lit_size)
+    seq3, _, _ = zstd_decode.fse_sequences_plain(
+        pk.src, pk.s_params, pk.s_tabs, pk.s_frames, pk.seq_slots)
+    args = (pk.src, lit, seq3, pk.b_frames, pk.blocks)
+    for out_cap in (65536, 4096):
+        before = zstd_decode.execute_launches
+        got = zstd_decode.execute(*args, out_cap=out_cap)
+        assert zstd_decode.execute_launches == before + 1
+        for g, w in zip(got, zstd_decode.execute_plain(*args, out_cap=out_cap)):
+            assert g.device.type == "cuda"
+            assert torch.equal(g, w)
+        out, out_len, ok = (t.cpu().numpy() for t in got)
+        for i, r in enumerate(raws):
+            assert ok[i] == (len(r) <= out_cap), i
+            if ok[i]:
+                assert out_len[i] == len(r) and out[i, :len(r)].tobytes() == r
+
+
+def test_zstd_decode_on_device(device):
+    raws = zstd_cases() + [_selfcheck_payload(s) for s in (1, 2)]
+    frames = [host_zstd_enc.compress_bytes(r) for r in raws]
+    fixture = libzstd_frames()
+    before = (zstd_decode.huffman_launches, zstd_decode.fse_launches,
+              zstd_decode.execute_frames, xxhash.launches)
+    codec = ZstdBatchCodec(device=device)
+    assert codec.decompress_chunks(frames) == raws
+    assert codec.decompress_chunks([f["frame"] for f in fixture]) == [
+        f["original"] for f in fixture]
+    after = (zstd_decode.huffman_launches, zstd_decode.fse_launches,
+             zstd_decode.execute_frames, xxhash.launches)
+    assert after[0] > before[0] and after[1] > before[1] and after[3] > before[3]
+    assert after[2] - before[2] == 1 + len(frames) + len(fixture)  # and the canary
+    for name, bad, reason in zstd_malformed_cases():
+        with pytest.raises(MalformedInputException) as exc:
+            zstd_decode.decode_batch([frames[0], bad, frames[1]], device=device)
+        assert (exc.value.offset, exc.value.reason) == (1, reason), name

@@ -36,6 +36,8 @@ def test_port_imports_with_jax_blocked():
     code = ("import importlib, sys\n"
             f"for name in {BLOCKED!r}: sys.modules[name] = None\n"
             "import aircompressor_tpu_torch, chip_smoke\n"
+            "import aircompressor_tpu_torch.ops.zstd_decode\n"
+            "import aircompressor_tpu_torch.host.zstd, aircompressor_tpu_torch.data\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "assert aircompressor_tpu_torch.ops.xxhash.launches == 0\n"
             "loaded = sorted(m for m in sys.modules\n"
