@@ -6,8 +6,8 @@ C++ kernel here (``csrc/``), built on first use by ``_build`` and bound with
 ctypes, beside a plain PyTorch version that runs for tensors on the CPU. It
 imports neither JAX nor ``aircompressor_tpu``: the host code it needs (the
 Snappy and LZ4 reference codecs, the x-snappy-framed walk and a framer,
-CRC32-C, the scalar XXH32 and XXH64, and the zstd host decoder, planner and
-encoder) is its own copy, in ``host``.
+CRC32-C, the scalar XXH32 and XXH64, and the zstd planner with its header
+and table readers, and the zstd host encoder) is its own copy, in ``host``.
 
 Ported so far: batched Snappy and LZ4 block decode and encode, batched zstd
 decode, XXH64, XXH32 and CRC32-C (``ops``); the user surface ``ops.batch``

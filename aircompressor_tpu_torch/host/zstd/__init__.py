@@ -1,9 +1,9 @@
 """The port's numpy copies of the JAX package's zstd host code.
 
 - ``constants``, ``bits``, ``fse``, ``huffman``: table readers and bit readers;
-- ``frame_dec``: the host frame decoder, the oracle of the checks;
 - ``device_prep``: the planner that parses frame, block and table headers
-  and describes each entropy stream for the decode kernels;
+  and describes each entropy stream for the decode kernels (the port
+  decodes frames only through them; it has no host frame decoder);
 - ``params``, ``fse_enc``, ``huff_enc``, ``seq_enc``, ``block_enc``,
   ``frame_enc``: the host encoder (``frame_enc.compress_bytes``), which
   makes the frames of the checks where no other zstd encoder is installed.

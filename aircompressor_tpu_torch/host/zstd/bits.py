@@ -59,14 +59,8 @@ class BackwardBitReader:
         self.remaining -= n
         return v
 
-    def skip(self, n: int) -> None:
-        self.remaining -= n
-
     def is_overflowed(self) -> bool:
         return self.remaining < 0
-
-    def is_fully_consumed(self) -> bool:
-        return self.remaining == 0
 
     def _extract(self, lo_bit: int, n: int) -> int:
         lo = self.start + (lo_bit >> 3)

@@ -2,6 +2,8 @@
 
 The port's copy of ``aircompressor_tpu.zstd.device_prep``: the same plan,
 field for field, with one addition (``plan_batch(..., item_errors=True)``).
+It holds its own copy of the frame-header and sequence-table readers of the
+JAX package's host decoder; the port has no host frame decoder.
 
 Only headers and table descriptions are parsed here; the entropy-coded
 payloads stay in the one flat input buffer for the kernels
@@ -31,7 +33,6 @@ import numpy as np
 from ...errors import MalformedInputException
 from . import constants as C
 from . import fse, huffman
-from .frame_dec import read_frame_header, _u24le, _u32le
 
 LANES = 128
 
@@ -109,6 +110,118 @@ class BatchPlan:
     out_cap: int = 0  # per-frame output capacity
 
 
+# ------------------------------------------- frame headers and sequence tables
+# The header and table readers of the JAX package's host decoder
+# (``zstd/frame_dec.py``), the only parts of it the planner needs.
+
+_PREDEFINED = {}
+
+
+def _predefined(kind: str) -> fse.FseTable:
+    if kind not in _PREDEFINED:
+        norm, log = {
+            "ll": (C.LL_DEFAULT_NORM, C.LL_DEFAULT_LOG),
+            "ml": (C.ML_DEFAULT_NORM, C.ML_DEFAULT_LOG),
+            "of": (C.OF_DEFAULT_NORM, C.OF_DEFAULT_LOG),
+        }[kind]
+        _PREDEFINED[kind] = fse.build_decode_table(norm, log)
+    return _PREDEFINED[kind]
+
+
+@dataclass
+class FrameHeader:
+    header_size: int
+    window_size: int
+    content_size: int  # -1 if unknown
+    has_checksum: bool
+    single_segment: bool
+    dictionary_id: int
+
+
+def _u24le(src: np.ndarray, i: int) -> int:
+    return int(src[i]) | (int(src[i + 1]) << 8) | (int(src[i + 2]) << 16)
+
+
+def _u32le(src: np.ndarray, i: int) -> int:
+    return _u24le(src, i) | (int(src[i + 3]) << 24)
+
+
+def read_frame_header(src: np.ndarray, ip: int) -> FrameHeader:
+    """Parse a frame header at src[ip:] (after the magic).
+    Reference: ZstdFrameDecompressor.readFrameHeader L860-940."""
+    n = src.size
+    if ip >= n:
+        raise MalformedInputException(ip, "truncated frame header")
+    fhd = int(src[ip])
+    pos = ip + 1
+    fcs_flag = fhd >> 6
+    single_segment = bool(fhd & 0x20)
+    if fhd & 0x08:
+        raise MalformedInputException(ip, "reserved frame header bit set")
+    has_checksum = bool(fhd & 0x04)
+    dict_flag = fhd & 0x03
+
+    window_size = -1
+    if not single_segment:
+        if pos >= n:
+            raise MalformedInputException(pos, "truncated window descriptor")
+        wd = int(src[pos])
+        pos += 1
+        exponent = wd >> 3
+        mantissa = wd & 7
+        base = 1 << (C.MIN_WINDOW_LOG + exponent)
+        window_size = base + (base // 8) * mantissa
+
+    dict_bytes = {0: 0, 1: 1, 2: 2, 3: 4}[dict_flag]
+    dictionary_id = 0
+    if dict_bytes:
+        if pos + dict_bytes > n:
+            raise MalformedInputException(pos, "truncated dictionary id")
+        for k in range(dict_bytes):
+            dictionary_id |= int(src[pos + k]) << (8 * k)
+        pos += dict_bytes
+
+    fcs_bytes = {0: 1 if single_segment else 0, 1: 2, 2: 4, 3: 8}[fcs_flag]
+    content_size = -1
+    if fcs_bytes:
+        if pos + fcs_bytes > n:
+            raise MalformedInputException(pos, "truncated content size")
+        content_size = 0
+        for k in range(fcs_bytes):
+            content_size |= int(src[pos + k]) << (8 * k)
+        if fcs_bytes == 2:
+            content_size += 256
+        pos += fcs_bytes
+
+    if single_segment:
+        window_size = content_size
+    return FrameHeader(pos - ip, window_size, content_size, has_checksum,
+                       single_segment, dictionary_id)
+
+
+def _read_seq_table(src: np.ndarray, ip: int, hi: int, mode: int, kind: str,
+                    max_symbol: int, max_log: int,
+                    prev: fse.FseTable | None) -> tuple[fse.FseTable, int]:
+    if mode == C.SEQ_PREDEFINED:
+        return _predefined(kind), ip
+    if mode == C.SEQ_RLE:
+        if ip >= hi:
+            raise MalformedInputException(ip, "truncated RLE sequence table")
+        symbol = int(src[ip])
+        if symbol > max_symbol:
+            raise MalformedInputException(ip, "RLE sequence symbol out of range")
+        return fse.build_rle_table(symbol), ip + 1
+    if mode == C.SEQ_FSE:
+        counts, table_log, consumed = fse.read_normalized_counts(
+            src, ip, hi, max_symbol, max_log)
+        return fse.build_decode_table(counts, table_log), ip + consumed
+    # repeat
+    if prev is None:
+        raise MalformedInputException(ip, "repeat sequence table without a previous table")
+    return prev, ip
+
+
+# ------------------------------------------------------------------ the plan
 def _pack_fse(table: fse.FseTable, cap: int) -> np.ndarray:
     """Pack (symbol, num_bits, new_state) as i32 sym | nb<<6 | ns<<10."""
     n = table.symbol.size
@@ -399,8 +512,6 @@ class _Planner:
         ip += 1
         if modes & 0b11:
             raise MalformedInputException(ip - 1, "reserved sequence mode bits set")
-
-        from .frame_dec import _read_seq_table
 
         ll_table, ip = _read_seq_table(src, ip, hi, (modes >> 6) & 3, "ll",
                                        C.MAX_LL_SYMBOL, C.LL_TABLE_LOG_MAX,

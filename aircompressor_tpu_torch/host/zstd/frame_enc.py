@@ -10,7 +10,10 @@ checksum.
 
 Differences by design: match finding is the vectorized pass in block_enc
 (single-segment window = whole input, so matches may reach across block
-boundaries legitimately); repcodes are not emitted (format-valid).
+boundaries legitimately). Repeat-offset codes are emitted wherever an
+offset equals a repeat offset (``_apply_repcodes``), with the repeat state
+carried from block to block of a frame; an input of at most one block
+(128 KB) gives a frame of one block, so only the repcodes within it.
 """
 
 from __future__ import annotations
@@ -324,8 +327,8 @@ def _partition_blocks(src, ll, offsets, ml, literals):
 def _apply_repcodes(ll, of_values, rep):
     """Convert wire offset values (real+3) to repcode form where possible,
     mirroring the decoder's repeated-offset semantics exactly (reference:
-    ZstdFrameDecompressor L416-450; decoder mirror: frame_dec
-    _decode_and_execute_sequences). Mutates ``rep`` (len-3 list) in place;
+    ZstdFrameDecompressor L416-450; decoder mirror: the repcode step of
+    ops/zstd_decode.fse_sequences_plain). Mutates ``rep`` (len-3 list) in place;
     returns the new offset-value array."""
     out = of_values.copy()
     of_list = of_values.tolist()

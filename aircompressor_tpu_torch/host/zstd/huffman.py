@@ -1,10 +1,10 @@
-"""Huffman coding for zstd literals — decode side (RFC 8878 §4.2).
+"""Huffman table descriptions for zstd literals (RFC 8878 §4.2).
 
-The port's copy of ``aircompressor_tpu.zstd.huffman``.
+The port's copy of the table reader of ``aircompressor_tpu.zstd.huffman``;
+the streams themselves are decoded by ``ops/zstd_decode.huffman_decode``.
 
-Parity targets: reference zstd/Huffman.java:52-317 (weight parsing direct or
-FSE-compressed, canonical table construction, single-stream and 4-stream
-decode with the 3×16-bit jump table).
+Parity targets: reference zstd/Huffman.java:52-165 (weight parsing direct or
+FSE-compressed, canonical table construction).
 """
 
 from __future__ import annotations
@@ -104,41 +104,3 @@ def build_table(weights: np.ndarray) -> HuffmanTable:
         num_bits[pos : pos + length] = table_log + 1 - w
         rank_start[w] += length
     return HuffmanTable(table_log, symbols, num_bits)
-
-
-def decode_single_stream(table: HuffmanTable, src: np.ndarray, start: int, end: int,
-                         out: np.ndarray, out_pos: int, out_len: int) -> None:
-    reader = BackwardBitReader(src, start, end)
-    log = table.table_log
-    syms, bits = table.symbols, table.num_bits
-    for i in range(out_len):
-        st = reader.peek(log)
-        out[out_pos + i] = syms[st]
-        reader.skip(int(bits[st]))
-        if reader.is_overflowed():
-            raise MalformedInputException(start, "Huffman stream exhausted early")
-    if not reader.is_fully_consumed():
-        raise MalformedInputException(start, "Huffman stream not fully consumed")
-
-
-def decode_4_streams(table: HuffmanTable, src: np.ndarray, start: int, end: int,
-                     out: np.ndarray, out_pos: int, out_len: int) -> None:
-    """4-stream variant: 6-byte jump table then 4 independent backward streams
-    (RFC 8878 §3.1.1.2.4; reference: Huffman.java:166-289)."""
-    if end - start < 6 + 4:
-        raise MalformedInputException(start, "4-stream literals too short")
-    s1 = int(src[start]) | (int(src[start + 1]) << 8)
-    s2 = int(src[start + 2]) | (int(src[start + 3]) << 8)
-    s3 = int(src[start + 4]) | (int(src[start + 5]) << 8)
-    p = start + 6
-    bounds = [p, p + s1, p + s1 + s2, p + s1 + s2 + s3, end]
-    if bounds[3] > end:
-        raise MalformedInputException(start, "jump table exceeds input")
-    seg = (out_len + 3) // 4
-    sizes = [seg, seg, seg, out_len - 3 * seg]
-    if sizes[3] < 0:
-        raise MalformedInputException(start, "regenerated size too small for 4 streams")
-    pos = out_pos
-    for k in range(4):
-        decode_single_stream(table, src, bounds[k], bounds[k + 1], out, pos, sizes[k])
-        pos += sizes[k]

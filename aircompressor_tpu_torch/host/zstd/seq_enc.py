@@ -7,7 +7,7 @@ zstd/SequenceEncoder.java:66-297 — count header, per-field mode selection
 (PREDEFINED / RLE / FSE_COMPRESSED), interleaved 3-state reverse-order FSE
 encode with extra bits.
 
-Bit order is the exact inverse of frame_dec._decode_and_execute_sequences:
+Bit order is the exact inverse of the decoder's (ops/zstd_decode.fse_sequences_plain):
 reader order is [ll_init, of_init, ml_init], then per sequence
 [of_extra, ml_extra, ll_extra] and (except after the last sequence)
 transitions [llT, mlT, ofT] — so the writer appends extras of the LAST

@@ -27,8 +27,8 @@ Differences from ``zstd_jax.decode_batch``, by design:
   that fails planning (``zstd_jax`` raises those at a byte offset, ROADMAP
   F8);
 - the repeat offsets carry across the blocks of a frame, as the format and
-  the host decoder have it (the Pallas kernel restarts them at every
-  block, ROADMAP F7).
+  the JAX package's host decoder have it (the Pallas kernel restarts them
+  at every block, ROADMAP F7).
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain version
 only for tensors on the CPU. The plain versions step through symbols and

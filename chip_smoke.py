@@ -26,10 +26,11 @@ read just after:
   16 times, planned once, through the Huffman, FSE and execute kernels and
   the xxh64 kernel.
 
-The three zstd kernels are first held against their plain versions on one
+The three zstd kernels are first held against their plain versions on a
 batch of frames from the host encoder, the libzstd fixture (multi-block
 frames whose sequences use repeat offsets of earlier blocks) and malformed
-frames. Every byte and hash is checked against the originals and the port's
+frames, and on a batch of 64 KB corpus chunks through the host encoder at
+level 3, as the zstd path gives them. Every byte and hash is checked against the originals and the port's
 host reference codecs. It prints the card's name and power limit, kernel and
 plain times, then one JSON line of per-kernel results, and last ``{"ok":
 true, "device": {...}}``. Any failed check raises, so the exit code is not
@@ -51,7 +52,6 @@ N_CHUNKS = 256  # the generated corpus: 256 chunks of 64 KB, 16 MB
 SUSTAIN = 16  # device-side tiling of the corpus: 4096 chunks, 256 MB
 ENC_CUT = 8192  # the cut of the synthetic encode cases
 ZSTD_CUT = 8192  # the cut of the synthetic zstd decode cases
-ZSTD_ENCODE_BUDGET_S = 60  # host encoder time past which 64 chunks are tiled
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 RATIO_LIMIT = 1.03  # encode size against the host reference compressor
 LZ4_RATIO_LIMIT = 1.01  # LZ4 encode size against the host LZ4 compressor on 16
@@ -190,6 +190,17 @@ def zstd_cases() -> list[bytes]:
         _selfcheck_payload(seed)[-ZSTD_CUT - 2000:][:ZSTD_CUT] for seed in (0xA1C0, 1)]
 
 
+def zstd_full_cases() -> list[bytes]:
+    """The zstd comparison at the decode path's width: corpus chunks 0, 4,
+    37, 38, 100 and 255 (the zero chunk, an RLE block, and text whose
+    matches reach tens of KB back, each one block through the host encoder
+    at level 3; chunk 38 is one of the five whose sequences use a repeat
+    offset)."""
+    from aircompressor_tpu_torch.ops.batch import _selfcheck_payload
+
+    return [bytes(CHUNK)] + [_selfcheck_payload(seed) for seed in (0, 33, 34, 96, 251)]
+
+
 def zstd_malformed_cases() -> list[tuple[str, bytes, str]]:
     """zstd frames that pass the planner and that the decode must reject,
     each with its name and the reason the decode gives: a Huffman stream
@@ -286,12 +297,42 @@ def gbps(nbytes, ms):
     return nbytes / ms / 1e6
 
 
+def zstd_plain_check(pk) -> tuple[dict, float, int]:
+    """Hold each zstd kernel to its plain version on one packed batch, the
+    execute kernel on the plain literals and triples. Returns each kernel's
+    max_abs_err, the plain versions' time (host clock) and the largest match
+    offset of the batch."""
+    from aircompressor_tpu_torch.ops import zstd_decode
+
+    h_args, s_args, _ = zstd_args(pk)
+    k_h = zstd_decode.huffman_decode(*h_args)
+    k_s = zstd_decode.fse_sequences(*s_args)
+    t0 = time.perf_counter()
+    p_h = zstd_decode.huffman_decode_plain(*h_args)
+    p_s = zstd_decode.fse_sequences_plain(*s_args)
+    x_args = (pk.src, p_h[0], p_s[0], pk.b_frames, pk.blocks)
+    p_x = zstd_decode.execute_plain(*x_args)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    k_x = zstd_decode.execute(*x_args)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, ks, ps in (("zstd_huffman", k_h, p_h), ("zstd_fse", k_s, p_s),
+                         ("zstd_execute", k_x, p_x)):
+        for k, p in zip(ks, ps):
+            require(torch.equal(k, p), f"{name} kernel == plain")
+        errs[name] = max(int((k.long() - p.long()).abs().max()) if k.numel() else 0
+                         for k, p in zip(ks, ps))
+    return errs, t_plain, int(p_s[0][:, 2].max()) if p_s[0].numel() else 0
+
+
 def zstd_kernels_against_plain(dev) -> dict:
-    """Hold the three zstd kernels to their plain versions on one batch: the
-    zstd cases through the host encoder, the libzstd fixture and the
-    malformed cases. Then decode the batch through all three and check every
-    frame: the good ones give their originals, the malformed ones are
-    rejected as their cases say."""
+    """Hold the three zstd kernels to their plain versions on two batches:
+    the zstd cases through the host encoder, the libzstd fixture and the
+    malformed cases; then 64 KB chunks through the host encoder at level 3,
+    as the decode path gives them. Then decode each batch through all three
+    and check every frame: the good ones give their originals, the
+    malformed ones are rejected as their cases say."""
     from aircompressor_tpu_torch.data import libzstd_frames, zstandard_version
     from aircompressor_tpu_torch.host.zstd import device_prep, frame_enc
     from aircompressor_tpu_torch.ops import zstd_decode
@@ -301,29 +342,16 @@ def zstd_kernels_against_plain(dev) -> dict:
     items = ([frame_enc.compress_bytes(r) for r in raws]
              + [f["frame"] for f in fixture] + [b for _, b, _ in bad])
     want = raws + [f["original"] for f in fixture]
+    full = zstd_full_cases()
+    full_items = [frame_enc.compress_bytes(c, 3) for c in full]
     plan = device_prep.plan_batch(items, CHUNK)
-    pk = zstd_decode.pack(plan, dev)
-    h_args, s_args, _ = zstd_args(pk)
-    k_h = zstd_decode.huffman_decode(*h_args)
-    k_s = zstd_decode.fse_sequences(*s_args)
-    t0 = time.perf_counter()
-    p_h = zstd_decode.huffman_decode_plain(*h_args)
-    p_s = zstd_decode.fse_sequences_plain(*s_args)
-    torch.cuda.synchronize()
-    t_plain = time.perf_counter() - t0
-    x_args = (pk.src, p_h[0], p_s[0], pk.b_frames, pk.blocks)
-    k_x = zstd_decode.execute(*x_args)
-    p_x = zstd_decode.execute_plain(*x_args)
-    torch.cuda.synchronize()
-    errs = {}
-    for name, ks, ps in (("zstd_huffman", k_h, p_h), ("zstd_fse", k_s, p_s),
-                         ("zstd_execute", k_x, p_x)):
-        for k, p in zip(ks, ps):
-            require(torch.equal(k, p), f"{name} kernel == plain")
-        errs[name] = max(int((k.long() - p.long()).abs().max()) if k.numel() else 0
-                         for k, p in zip(ks, ps))
+    full_plan = device_prep.plan_batch(full_items, CHUNK)
+    pk, full_pk = zstd_decode.pack(plan, dev), zstd_decode.pack(full_plan, dev)
+    errs, t_plain, _ = zstd_plain_check(pk)
+    full_errs, t_full_plain, full_offset = zstd_plain_check(full_pk)
+    errs = {k: max(v, full_errs[k]) for k, v in errs.items()}
 
-    res = zstd_decode.decode_plan(pk)
+    res, full_res = zstd_decode.decode_plan(pk), zstd_decode.decode_plan(full_pk)
     ok, checksum_ok = res["ok"].tolist(), res["checksum_ok"].tolist()
     lens = res["out_len"].tolist()
     n_good = len(want)
@@ -335,14 +363,26 @@ def zstd_kernels_against_plain(dev) -> dict:
         by_checksum = reason.startswith("frame checksum")
         require(ok_i and not cks_i if by_checksum else not ok_i,
                 f"zstd malformed case '{name}' rejected: ok {ok_i}, checksum_ok {cks_i}")
+    require(bool(full_res["ok"].all()) and bool(full_res["checksum_ok"].all()),
+            "every 64 KB zstd frame of the comparison ok")
+    for i, c in enumerate(full):
+        require(int(full_res["out_len"][i]) == len(c)
+                and full_res["out"][i, :len(c)].cpu().numpy().tobytes() == c,
+                f"64 KB zstd frame {i} decodes to its original")
     later = sum(bp.n_seq > 0 for f, fp in zip(fixture, plan.frames[len(raws):])
                 if f["flush"] for bp in fp.blocks[1:])
     print(f"zstd: {len(items)} frames ({len(raws)} from the host encoder, {len(fixture)} "
           f"from libzstd {zstandard_version()}, {len(bad)} malformed); "
           f"{len(plan.huff_streams)} Huffman streams, {len(plan.seq_streams)} sequences "
           f"sections, {later} of them after the first block of a multi-block libzstd "
-          f"frame; kernel == plain, max_abs_err {errs}; huffman + fse plain "
-          f"{t_plain:.2f} s (host clock)")
+          f"frame; kernel == plain; plain versions {t_plain:.2f} s (host clock)")
+    print(f"zstd: {len(full_items)} frames of 64 KB chunks at level 3: "
+          f"{len(full_plan.huff_streams)} Huffman streams of up to "
+          f"{max(h.nsym for h in full_plan.huff_streams)} symbols, "
+          f"{sum(s.nseq for s in full_plan.seq_streams)} sequences, offsets up to "
+          f"{full_offset}; kernel == plain; "
+          f"plain versions {t_full_plain:.2f} s (host clock); max_abs_err over both "
+          f"batches {errs}")
     return dict(n_frames=len(items), plan=plan, pk=pk, errs=errs)
 
 
@@ -372,14 +412,7 @@ def zstd_decode_path(dev, corpus: list[bytes], sustain: int = SUSTAIN) -> dict:
     print("== zstd decode path at real size (generated corpus)", flush=True)
     n = len(corpus)
     t0 = time.perf_counter()
-    frames = [frame_enc.compress_bytes(c, 3) for c in corpus[:8]]
-    per_chunk = (time.perf_counter() - t0) / 8
-    if per_chunk * n > ZSTD_ENCODE_BUDGET_S and n > 64:  # a slow host: 64, tiled
-        frames += [frame_enc.compress_bytes(c, 3) for c in corpus[8:64]]
-        frames, corpus = (frames * n)[:n], (corpus[:64] * n)[:n]
-        print(f"host encoder at {per_chunk:.3f} s a chunk: encoded 64 chunks, tiled to {n}")
-    else:
-        frames += [frame_enc.compress_bytes(c, 3) for c in corpus[8:]]
+    frames = [frame_enc.compress_bytes(c, 3) for c in corpus]
     t_encode = time.perf_counter() - t0
     raw, raw_lens = to_device_batch(*_pack(corpus, CHUNK), dev)
     big_raw, big_lens = raw.repeat(sustain, 1), raw_lens.repeat(sustain)

@@ -29,7 +29,7 @@ from aircompressor_tpu_torch.ops.batch import (
     snappy_framed_decompress_device, to_device_batch)
 from chip_smoke import (
     LZ4_EDGE_BLOCKS, backward_cap_case, lz4_length_edges_case, lz4_malformed_cases,
-    zstd_cases, zstd_malformed_cases)
+    zstd_cases, zstd_full_cases, zstd_malformed_cases)
 
 pytestmark = pytest.mark.cuda
 
@@ -228,15 +228,18 @@ def test_lz4_codec_round_trip_on_device(device, synthetic):
 
 
 def _zstd_batch(device):
-    """Frames of the synthetic cases, the libzstd fixture and the malformed
-    cases, packed on ``device``, with the originals of the good ones."""
+    """Frames of the synthetic cases, the libzstd fixture, 64 KB chunks at
+    level 3 (as the decode path gives them) and the malformed cases, packed
+    on ``device``, with the originals of the good ones."""
     raws = zstd_cases()
     fixture = libzstd_frames()
+    full = zstd_full_cases()
     frames = ([host_zstd_enc.compress_bytes(r) for r in raws]
               + [f["frame"] for f in fixture]
+              + [host_zstd_enc.compress_bytes(c, 3) for c in full]
               + [b for _, b, _ in zstd_malformed_cases()])
     plan = device_prep.plan_batch(frames, 65536)
-    return raws + [f["original"] for f in fixture], zstd_decode.pack(plan, device)
+    return raws + [f["original"] for f in fixture] + full, zstd_decode.pack(plan, device)
 
 
 def test_zstd_huffman_kernel_equals_plain(device):

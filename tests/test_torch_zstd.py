@@ -22,7 +22,7 @@ from aircompressor_tpu.zstd import frame_dec as jax_dec
 from aircompressor_tpu.zstd import frame_enc as jax_enc
 from aircompressor_tpu_torch.data import libzstd_frames, zstandard_version
 from aircompressor_tpu_torch.errors import MalformedInputException as PortMalformed
-from aircompressor_tpu_torch.host.zstd import device_prep, frame_dec, frame_enc
+from aircompressor_tpu_torch.host.zstd import device_prep, frame_enc
 from aircompressor_tpu_torch.ops import zstd_decode
 from aircompressor_tpu_torch.ops.batch import ZstdBatchCodec, _selfcheck_payload
 from chip_smoke import ZSTD_CUT, zstd_cases, zstd_malformed_cases
@@ -105,10 +105,7 @@ def test_execute_of_fse_plain_equals_frame_dec(batch):
         assert not out[i, len(raw):].any()
 
 
-def test_plan_equals_the_jax_planner(batch):
-    """Field by field: the port's copy keeps the JAX planner's alignment."""
-    want = jax_prep.plan_batch(batch["frames"], 65536)
-    got = batch["plan"]
+def _assert_plans_equal(got, want):
     np.testing.assert_array_equal(got.src, want.src)
     assert (got.litpad_size, got.seq_size, got.out_cap) == (
         want.litpad_size, want.seq_size, want.out_cap)
@@ -120,13 +117,17 @@ def test_plan_equals_the_jax_planner(batch):
                 np.testing.assert_equal(fa, fb)
 
 
+def test_plan_equals_the_jax_planner(batch):
+    """Field by field: the port's copy keeps the JAX planner's alignment."""
+    _assert_plans_equal(batch["plan"], jax_prep.plan_batch(batch["frames"], 65536))
+
+
 @pytest.mark.parametrize("level", [1, 3, 19])
 def test_host_encoder_equals_the_jax_encoder(level):
     raws = zstd_cases()[2:8] + [_selfcheck_payload(4)[:ZSTD_CUT]]
     for raw in raws:
         frame = frame_enc.compress_bytes(raw, level)
         assert frame == jax_enc.compress_bytes(raw, level)
-        assert _host_decode(frame_dec.decompress, frame) == raw
 
 
 def _malformed_host_frames() -> list[bytes]:
@@ -141,18 +142,28 @@ def _malformed_host_frames() -> list[bytes]:
 
 
 @pytest.mark.parametrize("case", range(len(_malformed_host_frames())))
-def test_host_decoder_rejects_as_the_jax_decoder(case):
-    """A malformed frame raises in both, at the same offset, for the same
-    reason; the frames that decode give the same bytes."""
+def test_port_rejects_as_the_jax_decoder(case):
+    """The port's planner raises where the JAX planner does, at the same
+    offset for the same reason, and plans the other frames as it does; the
+    port's decode rejects exactly the frames that the JAX host decoder
+    rejects, naming the item, and gives the others the same bytes."""
     frame = _malformed_host_frames()[case]
     try:
-        want = _host_decode(jax_dec.decompress, frame)
+        want_plan = jax_prep.plan_batch([frame], 65536)
     except MalformedInputException as exc:
         with pytest.raises(PortMalformed) as got:
-            _host_decode(frame_dec.decompress, frame)
+            device_prep.plan_batch([frame], 65536)
         assert (got.value.offset, got.value.reason) == (exc.offset, exc.reason)
     else:
-        assert _host_decode(frame_dec.decompress, frame) == want
+        _assert_plans_equal(device_prep.plan_batch([frame], 65536), want_plan)
+    try:
+        want = _host_decode(jax_dec.decompress, frame)
+    except MalformedInputException:
+        with pytest.raises(PortMalformed) as got:
+            zstd_decode.decode_batch([frame], device="cpu")
+        assert got.value.offset == 0
+    else:
+        assert zstd_decode.decode_batch([frame], device="cpu") == [want]
 
 
 @pytest.mark.parametrize("name, bad, reason", MALFORMED, ids=[m[0] for m in MALFORMED])
