@@ -5,14 +5,17 @@ each kernel that ``aircompressor_tpu`` wrote in Pallas for a TPU is a CUDA
 C++ kernel here (``csrc/``), built on first use by ``_build`` and bound with
 ctypes, beside a plain PyTorch version that runs for tensors on the CPU. It
 imports neither JAX nor ``aircompressor_tpu``: the host code it needs (the
-Snappy and LZ4 reference codecs, the x-snappy-framed walk and a framer,
-CRC32-C, the scalar XXH32 and XXH64, and the zstd planner with its header
-and table readers, and the zstd host encoder) is its own copy, in ``host``.
+Snappy, LZ4 and LZO reference codecs, the x-snappy-framed walk and a
+framer, CRC32-C, the scalar XXH32 and XXH64, the zstd planner with its
+header and table readers, the zstd host encoder, and the raw-deflate
+planner in C++, built with g++ by ``_build``) is its own copy, in ``host``.
 
-Ported so far: batched Snappy and LZ4 block decode and encode, batched zstd
-decode, XXH64, XXH32 and CRC32-C (``ops``); the user surface ``ops.batch``
-(``SnappyBatchCodec`` and ``Lz4BatchCodec`` with ``compress_chunks`` and
-``decompress_chunks``, ``ZstdBatchCodec.decompress_chunks``, and
+Ported so far: batched Snappy and LZ4 block decode and encode, batched
+LZO1X, raw-deflate and zstd decode, XXH64, XXH32 and CRC32-C (``ops``); the
+user surface ``ops.batch`` (``SnappyBatchCodec`` and ``Lz4BatchCodec`` with
+``compress_chunks`` and ``decompress_chunks``, ``LzoBatchCodec`` and
+``DeflateBatchCodec`` with ``decompress_chunks`` on the card and
+``compress_chunks`` on the host, ``ZstdBatchCodec.decompress_chunks``, and
 ``snappy_framed_decompress_device``); the main-path entry ``entry.entry``.
 Entry points run on the card unless given ``device="cpu"``. ``data`` holds
 the fixtures of the checks.

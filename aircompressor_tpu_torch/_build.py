@@ -1,4 +1,5 @@
-"""Build the package's CUDA kernels with nvcc and load them with ctypes.
+"""Build the package's CUDA kernels with nvcc, and its C++ host code with
+g++, and load them with ctypes.
 
 ``csrc/*.cu`` compile once into one shared library with a plain C
 interface, under ``build/kernels/`` at the root of the checkout: one nvcc
@@ -7,6 +8,12 @@ name carries a hash of the sources and flags, so an edited source builds
 anew and an unchanged one loads the library already built. Nothing here
 includes PyTorch's headers: pointers and the stream pass as integers, which
 keeps a build to seconds. Nothing is built when the module is imported.
+
+``host/**/*.cc`` (the deflate planner) compile the same way with g++ into
+one library under ``build/host/``, keyed by a hash of its sources and flags.
+It runs on the CPU, so it is built wherever it is first used, the CPU tests
+included. ``-O3`` without ``-march``, so the library does not depend on the
+CPU it was built on.
 """
 
 from __future__ import annotations
@@ -19,10 +26,13 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+HOST_SRC = Path(__file__).resolve().parent / "host"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+HOST_BUILD_DIR = BUILD_DIR.parent / "host"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+GXX_FLAGS = ("-std=c++17", "-O3", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,22 +48,43 @@ _SIGNATURES = {
     "acx_zstd_huffman": [_P, _L, _P, _P, _I, _P, _P, _P],
     "acx_zstd_fse": [_P, _L, _P, _P, _P, _I, _P, _P, _P, _P],
     "acx_zstd_execute": [_P, _L, _P, _L, _P, _P, _P, _I, _P, _I, _P, _P, _P],
+    "acx_lzo_decode": [_P, _P, _I, _I, _P, _P, _P, _I, _P],
+    "acx_deflate_decode": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P],
+}
+# C++ host entry -> argument types; each returns nothing.
+_HOST_SIGNATURES = {
+    "acx_inflate_plan_batch": [_P, _L, _L, _P, _I, _I, _I, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None
+_host_lib: ctypes.CDLL | None = None
 
 
 def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+def _host_sources() -> list[Path]:
+    return sorted(HOST_SRC.rglob("*.cc"))
+
+
+def _hashed_path(directory: Path, stem: str, flags, sources) -> Path:
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    return BUILD_DIR / f"libaircompressor_kernels-{digest.hexdigest()[:16]}.so"
+    return directory / f"{stem}-{digest.hexdigest()[:16]}.so"
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    return _hashed_path(BUILD_DIR, "libaircompressor_kernels", NVCC_FLAGS, _sources())
+
+
+def host_library_path() -> Path:
+    """Where the host library for the current sources and flags lives."""
+    return _hashed_path(HOST_BUILD_DIR, "libaircompressor_host", GXX_FLAGS,
+                        _host_sources())
 
 
 def _nvcc() -> str:
@@ -111,6 +142,41 @@ def build() -> Path:
     lib.with_suffix(".log").write_text("".join(logs) + link.stdout + link.stderr)
     os.replace(tmp, lib)
     return lib
+
+
+def build_host() -> Path:
+    """Compile ``host/**/*.cc`` with g++ unless this exact build exists;
+    return its path. Raises with the compiler's output when it fails."""
+    lib = host_library_path()
+    if lib.exists():
+        return lib
+    HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    gxx = shutil.which("g++") or shutil.which("c++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the deflate planner needs a C++ compiler")
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [gxx, *GXX_FLAGS, "-shared", "-o", str(tmp),
+           *(str(src) for src in _host_sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed with exit code {proc.returncode}: "
+                           f"{' '.join(cmd)}\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def load_host() -> ctypes.CDLL:
+    """The host library, built on first use in this process."""
+    global _host_lib
+    if _host_lib is None:
+        lib = ctypes.CDLL(str(build_host()))
+        for name, argtypes in _HOST_SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = None
+        _host_lib = lib
+    return _host_lib
 
 
 def load() -> ctypes.CDLL:

@@ -1,12 +1,14 @@
-"""Batched Snappy, LZ4 and zstd on a torch device: the user surface over the
-kernels.
+"""Batched Snappy, LZ4, LZO, deflate and zstd on a torch device: the user
+surface over the kernels.
 
 Counterpart of ``aircompressor_tpu.ops.batch``'s ``SnappyBatchCodec``,
-``Lz4BatchCodec``, ``ZstdBatchCodec`` (decode) and
-``snappy_framed_decompress_device``. Every chunk goes to the kernels: the
-decode kernels read their input from device memory and have no limit on the
-compressed length, so there is no host tier for large blobs, and every
-chunk to compress goes through an encode kernel. Before its first batch
+``Lz4BatchCodec``, ``LzoBatchCodec``, ``DeflateBatchCodec``,
+``ZstdBatchCodec`` (decode) and ``snappy_framed_decompress_device``. Every
+chunk to decode goes to the kernels: the decode kernels read their input
+from device memory and have no limit on the compressed length or on a
+deflate chunk's blocks, so there is no host tier for large blobs. Every
+Snappy or LZ4 chunk to compress goes through an encode kernel; LZO and
+deflate compress on the host, as in the JAX package. Before its first batch
 each way, a codec runs a 64 KB canary through the kernels and raises if the
 bytes differ; there is no fallback. A codec runs on the card unless it is
 given ``device="cpu"``, where the plain PyTorch versions run.
@@ -15,16 +17,19 @@ given ``device="cpu"``, where the plain PyTorch versions run.
 from __future__ import annotations
 
 import functools
+import zlib
 from typing import Sequence
 
 import numpy as np
 import torch
 
 from ..errors import MalformedInputException
-from ..host import framed, lz4 as host_lz4, snappy as host_snappy
+from ..host import framed, lz4 as host_lz4, lzo as host_lzo, snappy as host_snappy
 from ..host.crc32c import crc32c_raw, mask_crc
+from ..host.deflate import plan as deflate_plan
 from ..host.zstd import frame_enc as host_zstd_enc
-from . import checksum, lz4_decode, lz4_encode, snappy_decode, snappy_encode, zstd_decode
+from . import (checksum, deflate_decode, lz4_decode, lz4_encode, lzo_decode,
+               snappy_decode, snappy_encode, zstd_decode)
 
 CHUNK = 65536
 
@@ -52,6 +57,13 @@ def _selfcheck_payload(seed: int = 0xA1C0) -> bytes:
 
 def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
+
+
+def _check_capacity(chunks: Sequence[bytes], max_chunk: int) -> None:
+    """Raises ValueError naming the first chunk over ``max_chunk`` bytes."""
+    for i, c in enumerate(chunks):
+        if len(c) > max_chunk:
+            raise ValueError(f"chunk {i} exceeds capacity {max_chunk}")
 
 
 def _pack(blobs: Sequence[bytes], cap: int):
@@ -142,9 +154,7 @@ class _BlockBatchCodec:
         ``max_chunk`` and RuntimeError if the kernel flags a chunk not ok."""
         if not chunks:
             return []
-        for i, c in enumerate(chunks):
-            if len(c) > self.max_chunk:
-                raise ValueError(f"chunk {i} exceeds capacity {self.max_chunk}")
+        _check_capacity(chunks, self.max_chunk)
         if not self._encode_checked:
             self._encode_self_check()
         cap = _round_up(max(1, max(len(c) for c in chunks)), 16)
@@ -186,6 +196,102 @@ class Lz4BatchCodec(_BlockBatchCodec):
     ``max_chunk`` bytes, on ``device`` (the card by default)."""
 
     name, host, decoder, encoder = "lz4", host_lz4, lz4_decode, lz4_encode
+
+
+class LzoBatchCodec(_BlockBatchCodec):
+    """Chunk-parallel LZO1X decode of chunks up to ``max_chunk`` bytes on
+    ``device`` (the card by default). Compression runs the host encoder
+    for each chunk: the reference has no native LZO, and neither does the
+    JAX package."""
+
+    name, host, decoder = "lzo", host_lzo, lzo_decode
+
+    def compress_chunks(self, chunks: Sequence[bytes]) -> list[bytes]:
+        """One LZO1X block for each chunk, on the host; raises ValueError for
+        a chunk over ``max_chunk``."""
+        _check_capacity(chunks, self.max_chunk)
+        return [host_lzo.compress(c) for c in chunks]
+
+
+def deflate_raw(data: bytes, level: int = 6) -> bytes:
+    """One raw-deflate stream of ``data`` from the standard library's zlib."""
+    co = zlib.compressobj(level, zlib.DEFLATED, -15)
+    return co.compress(data) + co.flush()
+
+
+@functools.cache
+def _deflate_canary() -> tuple[bytes, bytes]:
+    """The canary payload and its raw-deflate stream at level 6."""
+    payload = _selfcheck_payload()
+    return payload, deflate_raw(payload)
+
+
+def _zlib_reason(blob: bytes, max_chunk: int) -> str:
+    """What the standard library's zlib says of a chunk the planner
+    rejected."""
+    try:
+        out = zlib.decompress(blob, -15)
+    except zlib.error as e:
+        return str(e)
+    if len(out) > max_chunk:
+        return f"deflate chunk decodes to more than {max_chunk} bytes"
+    return "malformed deflate chunk in batch"
+
+
+class DeflateBatchCodec:
+    """Chunk-parallel raw-deflate decode of chunks of up to ``max_chunk``
+    bytes out, on ``device`` (the card by default): the C++ planner on the
+    host (blocks and Huffman tables), then the decode kernel, which derives
+    every byte from the bitstream. Every chunk goes through the kernel,
+    whatever its number of blocks. Compression runs zlib on the host at
+    ``level``, as the JAX package's host tier does."""
+
+    def __init__(self, max_chunk: int = CHUNK, level: int = 6, *, device="cuda"):
+        if max_chunk > CHUNK:
+            raise ValueError(f"deflate batch chunks are capped at {CHUNK} bytes")
+        self.max_chunk = max_chunk
+        self.level = level
+        self.device = torch.device(device)
+        self._decode_checked = False
+
+    def compress_chunks(self, chunks: Sequence[bytes]) -> list[bytes]:
+        """One raw-deflate stream for each chunk, on the host; raises
+        ValueError for a chunk over ``max_chunk``."""
+        _check_capacity(chunks, self.max_chunk)
+        return [deflate_raw(c, self.level) for c in chunks]
+
+    def _decode_self_check(self) -> None:
+        payload, blob = _deflate_canary()
+        if self._decode([blob], CHUNK) != [payload]:
+            raise RuntimeError(f"deflate decode failed its self-check on {self.device}")
+        self._decode_checked = True
+
+    def _decode(self, blobs: Sequence[bytes], out_cap: int) -> list[bytes]:
+        buf, lens = _pack(blobs, _round_up(max(1, max(len(b) for b in blobs)), 16))
+        plan = deflate_plan.plan(buf, lens, out_cap=out_cap)
+        comp, comp_lens = to_device_batch(buf, lens, self.device)
+        out, out_lens, ok = deflate_decode.decode(
+            comp, comp_lens, deflate_decode.upload(plan, self.device), out_cap=out_cap)
+        planned = plan.info[:, 3] == deflate_plan.ST_OK
+        good = ok.cpu().numpy() & planned & (out_lens.cpu().numpy() == plan.info[:, 0])
+        bad = np.nonzero(~good)[0]
+        if bad.size:
+            i = int(bad[0])
+            reason = (_zlib_reason(blobs[i], out_cap) if not planned[i]
+                      else "malformed deflate chunk in batch")
+            raise MalformedInputException(i, reason)
+        return _rows(out, out_lens)
+
+    def decompress_chunks(self, blobs: Sequence[bytes]) -> list[bytes]:
+        """Decode each blob, one raw-deflate stream each; raises
+        MalformedInputException naming the index of the first chunk that is
+        malformed or over ``max_chunk``, with zlib's reason where the
+        planner rejected it."""
+        if not blobs:
+            return []
+        if not self._decode_checked:
+            self._decode_self_check()
+        return self._decode(blobs, self.max_chunk)
 
 
 class ZstdBatchCodec:

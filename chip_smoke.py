@@ -7,7 +7,7 @@ Run from the root of a checkout, with one CUDA card visible:
 It builds the CUDA kernels of ``aircompressor_tpu_torch`` from ``csrc/`` and
 holds each kernel against its plain PyTorch version on the card, the encode
 kernels on short cases and on 64 KB rows as the compress paths give them.
-Then it drives four paths over a generated corpus of 256 chunks of 64 KB
+Then it drives its paths over a generated corpus of 256 chunks of 64 KB
 (16 MB), each with the kernels' launch counts set to 0 just before it and
 read just after:
 
@@ -24,13 +24,22 @@ read just after:
 - zstd: the corpus through the port's host encoder at level 3,
   ``ZstdBatchCodec.decompress_chunks`` on its frames, then the frames tiled
   16 times, planned once, through the Huffman, FSE and execute kernels and
-  the xxh64 kernel.
+  the xxh64 kernel;
+- LZO: ``LzoBatchCodec.compress_chunks`` (the host encoder) and
+  ``decompress_chunks`` on the corpus, then its blocks tiled 16 times
+  through the LZO decode kernel and the xxh64 kernel;
+- deflate: ``DeflateBatchCodec.compress_chunks`` (zlib level 6) and
+  ``decompress_chunks`` on the corpus, then its streams planned once (the
+  C++ planner, built with g++), plan and streams tiled 16 times, through
+  the deflate decode kernel and the xxh64 kernel.
 
 The three zstd kernels are first held against their plain versions on a
 batch of frames from the host encoder, the libzstd fixture (multi-block
 frames whose sequences use repeat offsets of earlier blocks) and malformed
 frames, and on a batch of 64 KB corpus chunks through the host encoder at
-level 3, as the zstd path gives them. Every byte and hash is checked against the originals and the port's
+level 3, as the zstd path gives them; the LZO and deflate kernels likewise,
+on synthetic, edge, malformed and 64 KB chunks. Every byte and hash is
+checked against the originals and the port's
 host reference codecs. It prints the card's name and power limit, kernel and
 plain times, then one JSON line of per-kernel results, and last ``{"ok":
 true, "device": {...}}``. Any failed check raises, so the exit code is not
@@ -236,6 +245,158 @@ def zstd_malformed_cases() -> list[tuple[str, bytes, str]]:
             ("offset past the frame start", far, bad_frame),
             ("content size mismatch", size, bad_frame),
             ("flipped checksum", checksum, "frame checksum mismatch (device decode)")]
+
+
+# LZO1X blocks at the edges of the format, with the ok flag and out_lens that
+# lzo_pallas_w.decode gives them at out_cap LZO_EDGE_CAP (interpret mode):
+# the malformed blocks of tests/test_lzo_device.py, truncated M1 (state 1),
+# M1' (state 4), M2, M3 and M4 commands, zero runs that end the input (a
+# literal run's and an M3 length's), M2 and M1' matches before the start,
+# output one byte over out_cap, exactly out_cap and past 64 KB (an M3 match
+# of 4093, 4092 and 65533 bytes after 4 literals), data after the stop
+# command, a first literal run past the input, the stop command alone, and
+# a trailing literal missing at the end. The host decoder rejects exactly
+# the blocks that are not ok here.
+LZO_EDGE_CAP = 4096
+LZO_EDGE_BLOCKS = [
+    (bytes.fromhex("00"), False, 0),
+    (bytes.fromhex("1100"), False, 0),
+    (bytes.fromhex("0004736f6d652064"), False, 0),
+    (bytes.fromhex("40ff0000000000000000"), False, 0),
+    (bytes.fromhex("126100"), False, 1),
+    (bytes.fromhex("156162636401"), False, 4),
+    (bytes.fromhex("156162636440"), False, 4),
+    (bytes.fromhex("15616263642100"), False, 4),
+    (bytes.fromhex("15616263641900"), False, 4),
+    (bytes.fromhex("000000"), False, 0),
+    (bytes.fromhex("1561626364200000"), False, 4),
+    (bytes.fromhex("15616263644001110000"), False, 4),
+    (bytes.fromhex("15616263640100110000"), False, 4),
+    (bytes.fromhex("156162636420") + bytes(15) + bytes.fromhex("eb0000110000"), False, 4097),
+    (bytes.fromhex("156162636420") + bytes(15) + bytes.fromhex("ea0000110000"), True, 4096),
+    (bytes.fromhex("156162636420") + bytes(256) + bytes.fromhex("dc0000110000"), False, 4),
+    (bytes.fromhex("0004736f6d65206461746120746f20636f6d7072657373202000775400086f20636f"
+                   "6d707265737320110000747261696c696e672064617461"), True, 440),
+    (bytes.fromhex("166162"), False, 0),
+    (bytes.fromhex("110000"), True, 0),
+    (bytes.fromhex("15616263644100"), False, 7),
+]
+
+
+def lzo_cases() -> list[bytes]:
+    """The LZO comparison's originals: the synthetic cases cut to 64 KB."""
+    return [c[:CHUNK] for _, c in synthetic_cases()]
+
+
+def corpus_full_cases() -> list[bytes]:
+    """Six 64 KB corpus chunks, as the LZO and deflate paths give them: the
+    zero chunk, the byte ramp and four text chunks."""
+    from aircompressor_tpu_torch.ops.batch import _selfcheck_payload
+
+    ramp = bytes(i & 0xFF for i in range(CHUNK))
+    return [bytes(CHUNK), ramp] + [_selfcheck_payload(seed) for seed in (0, 33, 96, 251)]
+
+
+def deflate_full_flush(data: bytes, every: int = 2048, level: int = 6) -> bytes:
+    """A raw-deflate stream of data with a zlib full flush every ``every``
+    bytes: two blocks a flush, more than the JAX planner's 16."""
+    import zlib
+
+    co = zlib.compressobj(level, zlib.DEFLATED, -15)
+    parts = [co.compress(data[i:i + every]) + co.flush(zlib.Z_FULL_FLUSH)
+             for i in range(0, len(data), every)]
+    return b"".join(parts) + co.flush()
+
+
+def _canonical_codes(lengths: dict) -> dict:
+    """RFC 1951 canonical Huffman codes {symbol: (code, length)}."""
+    codes, code, prev = {}, 0, 0
+    for sym, n in sorted(lengths.items(), key=lambda kv: (kv[1], kv[0])):
+        code <<= n - prev
+        codes[sym], code, prev = (code, n), code + 1, n
+    return codes
+
+
+def deflate_dynamic_block(ll_lens: dict, d_lens: dict, symbols,
+                          cl_symbols: int = 16) -> bytes:
+    """One final dynamic-Huffman block with these literal/length and
+    distance code lengths ({symbol: length}, whatever their Kraft sums),
+    sent with a code-length code of 4 bits for each of the symbols 0 to
+    ``cl_symbols`` - 1 (complete for 16), and then ``symbols``: (alphabet
+    "ll" or "d", symbol, extra value, extra bits) in order."""
+    acc, n = 0, 0
+
+    def put(value: int, width: int) -> None:
+        nonlocal acc, n
+        acc |= value << n
+        n += width
+
+    def huff(code: int, width: int) -> None:  # Huffman codes go MSB first
+        put(int(format(code, f"0{width}b")[::-1], 2), width)
+
+    hlit = max(257, max(ll_lens) + 1)
+    hdist = max(1, max(d_lens) + 1) if d_lens else 1
+    put(1, 1)
+    put(2, 2)
+    put(hlit - 257, 5)
+    put(hdist - 1, 5)
+    put(19 - 4, 4)
+    order = [16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15]
+    for sym in order:
+        put(4 if sym < cl_symbols else 0, 3)
+    for i in range(hlit):
+        huff(ll_lens.get(i, 0), 4)
+    for i in range(hdist):
+        huff(d_lens.get(i, 0), 4)
+    codes = {"ll": _canonical_codes(ll_lens), "d": _canonical_codes(d_lens)}
+    for alphabet, sym, extra, extra_bits in symbols:
+        huff(*codes[alphabet][sym])
+        put(extra, extra_bits)
+    return acc.to_bytes((n + 7) // 8, "little")
+
+
+def deflate_f3_stream() -> bytes:
+    """"aaa" in a dynamic block whose literal/length code is incomplete: two
+    codes of length 2 ('a' and end of block). The JAX planner takes it (ROADMAP
+    F3); zlib rejects it ("invalid literal/lengths set"), and so does the
+    port's planner."""
+    return deflate_dynamic_block({97: 2, 256: 2}, {},
+                                 [("ll", 97, 0, 0)] * 3 + [("ll", 256, 0, 0)])
+
+
+def deflate_malformed_cases() -> list[tuple[str, bytes]]:
+    """Raw-deflate streams that zlib and the planner reject, each with its
+    name."""
+    from aircompressor_tpu_torch.ops.batch import _selfcheck_payload, deflate_raw
+
+    good = deflate_raw(_selfcheck_payload(5)[:20000])
+    lit = [("ll", 97, 0, 0)]
+    return [
+        ("truncated", good[: len(good) // 2]),
+        ("bad len/nlen", b"\x01\x05\x00\x00\x00hello"),
+        ("btype 3", b"\x07"),
+        ("over-subscribed code", deflate_dynamic_block(
+            {97: 1, 98: 1, 256: 1}, {}, lit + [("ll", 256, 0, 0)])),
+        ("distance too far back", deflate_dynamic_block(  # length 3, distance 2
+            {97: 1, 256: 2, 257: 2}, {1: 1}, lit + [("ll", 257, 0, 0), ("d", 1, 0, 0),
+                                                   ("ll", 256, 0, 0)])),
+        ("incomplete code (F3)", deflate_f3_stream()),
+        ("incomplete code-length code (F3)", deflate_dynamic_block(
+            {97: 1, 256: 1}, {}, lit + [("ll", 256, 0, 0)], cl_symbols=15)),
+    ]
+
+
+def deflate_cases() -> tuple[list[bytes], list[bytes]]:
+    """The deflate comparison's streams and their originals: the synthetic
+    cases cut to 64 KB at levels 1, 6 and 9 (short ones in fixed-Huffman
+    blocks, the random chunk in stored blocks), and a 64 KB corpus chunk
+    with a full flush every 2 KB (65 blocks)."""
+    from aircompressor_tpu_torch.ops.batch import _selfcheck_payload, deflate_raw
+
+    raws = [c[:CHUNK] for _, c in synthetic_cases()]
+    blobs = [deflate_raw(r, level) for level in (1, 6, 9) for r in raws]
+    flushed = _selfcheck_payload(3)
+    return blobs + [deflate_full_flush(flushed)], raws * 3 + [flushed]
 
 
 def require(cond, what: str) -> None:
@@ -507,6 +668,327 @@ def zstd_kernel_times(zk: dict, zp: dict) -> list[dict]:
     return entries
 
 
+def lzo_kernel_against_plain(dev) -> dict:
+    """Hold the LZO kernel to its plain version on the LZO cases, six 64 KB
+    corpus chunks and the edge blocks, at out_cap 64 KB and LZO_EDGE_CAP;
+    check the flags against the host decoder, the bytes against the
+    originals and the edge blocks against the Pallas kernel's values."""
+    from aircompressor_tpu_torch.errors import MalformedInputException
+    from aircompressor_tpu_torch.host import lzo as host_lzo
+    from aircompressor_tpu_torch.ops import lzo_decode
+    from aircompressor_tpu_torch.ops.batch import _pack, _round_up, to_device_batch
+
+    print("== LZO kernel against plain on the card", flush=True)
+    raws = lzo_cases() + corpus_full_cases()
+    blobs = [host_lzo.compress(r) for r in raws] + [b for b, _, _ in LZO_EDGE_BLOCKS]
+    want = []
+    for b in blobs:
+        try:
+            want.append(host_lzo.decompress(b, CHUNK))
+        except MalformedInputException:
+            want.append(None)
+    require(want[:len(raws)] == raws, "the host LZO codec round-trips the cases")
+    comp, lens = to_device_batch(*_pack(blobs, _round_up(max(map(len, blobs)), 16)), dev)
+    err, t_plain = 0, 0.0
+    for out_cap in (CHUNK, LZO_EDGE_CAP):
+        k = lzo_decode.decode(comp, lens, out_cap=out_cap)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = lzo_decode.decode_plain(comp, lens, out_cap=out_cap)
+        torch.cuda.synchronize()
+        t_plain += time.perf_counter() - t0
+        for name, a, b in zip(("out", "out_lens", "ok"), k, p):
+            require(torch.equal(a, b), f"lzo decode {name} equal plain at out_cap {out_cap}")
+        err = max(err, int((k[0].int() - p[0].int()).abs().max()))
+        got_ok = k[2].tolist()
+        require(got_ok == [w is not None and len(w) <= out_cap for w in want],
+                f"lzo decode flags exactly what the host decoder rejects at {out_cap}")
+        for i, w in enumerate(want):
+            if w is not None:
+                require(k[0][i, :min(len(w), out_cap)].cpu().numpy().tobytes()
+                        == w[:out_cap], f"lzo decode case {i} equals its original")
+        if out_cap == LZO_EDGE_CAP:
+            edge = list(zip(got_ok, k[1].tolist()))[-len(LZO_EDGE_BLOCKS):]
+            require(edge == [(ok, n) for _, ok, n in LZO_EDGE_BLOCKS],
+                    f"lzo decode gives the Pallas kernel's ok and out_lens on the edge "
+                    f"blocks: {edge}")
+    n_full = len(corpus_full_cases())
+    full = blobs[len(raws) - n_full:len(raws)]
+    print(f"lzo decode: {len(blobs)} chunks ({want.count(None)} malformed; "
+          f"{n_full} of 64 KB corpus chunks) at out_cap {CHUNK} and {LZO_EDGE_CAP}, "
+          f"kernel == plain, max_abs_err {err}; edge blocks as the Pallas kernel; "
+          f"plain {t_plain:.2f} s (host clock, both caps)")
+    return dict(err=err, full=full)
+
+
+def deflate_kernel_against_plain(dev) -> dict:
+    """Hold the deflate kernel to its plain version on the deflate cases, six
+    64 KB corpus chunks, the malformed streams, and two chunks whose bytes
+    were changed after planning (cut to half its length, one flipped bit),
+    at out_cap 64 KB and 4096; check the planner's status of each, the
+    flags and the bytes; and that DeflateBatchCodec names each malformed
+    stream with zlib's reason."""
+    from aircompressor_tpu_torch.errors import MalformedInputException
+    from aircompressor_tpu_torch.host.deflate import plan as deflate_plan
+    from aircompressor_tpu_torch.ops import deflate_decode
+    from aircompressor_tpu_torch.ops.batch import (
+        DeflateBatchCodec, _pack, _round_up, deflate_raw, to_device_batch)
+
+    print("== deflate kernel against plain on the card", flush=True)
+    blobs, raws = deflate_cases()
+    full = [deflate_raw(c) for c in corpus_full_cases()]
+    blobs, raws = blobs + full, raws + corpus_full_cases()
+    bad = deflate_malformed_cases()
+    edited = [full[3], full[2]]  # planned whole, then changed
+    items = blobs + [b for _, b in bad] + edited
+    buf, lens = _pack(items, _round_up(max(map(len, items)), 16))
+    t0 = time.perf_counter()
+    plan = deflate_plan.plan(buf, lens)
+    t_plan = time.perf_counter() - t0
+    status = plan.info[:, 3].tolist()
+    n_good, n_bad = len(blobs), len(bad)
+    require(status[:n_good] == [deflate_plan.ST_OK] * n_good and
+            status[n_good + n_bad:] == [deflate_plan.ST_OK] * 2, "every good stream plans")
+    require(status[n_good:n_good + n_bad] == [deflate_plan.ST_MALFORMED] * n_bad,
+            f"the planner rejects every malformed stream: {status[n_good:n_good + n_bad]}")
+    flushed = n_good - len(full) - 1
+    require(int(plan.info[flushed, 1]) > 16, "the full-flush chunk has more than 16 blocks")
+    lens[-2] //= 2  # the last two rows keep their plan: a cut length ...
+    buf[-1, len(edited[1]) // 2] ^= 0x10  # ... and a flipped bit
+    comp, comp_lens = to_device_batch(buf, lens, dev)
+    dplan = deflate_decode.upload(plan, dev)
+    err, t_plain = 0, 0.0
+    for out_cap in (CHUNK, 4096):
+        k = deflate_decode.decode(comp, comp_lens, dplan, out_cap=out_cap)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = deflate_decode.decode_plain(comp, comp_lens, dplan, out_cap=out_cap)
+        torch.cuda.synchronize()
+        t_plain += time.perf_counter() - t0
+        for name, a, b in zip(("out", "out_lens", "ok"), k, p):
+            require(torch.equal(a, b), f"deflate decode {name} equal plain at out_cap {out_cap}")
+        err = max(err, int((k[0].int() - p[0].int()).abs().max()))
+        got_ok = k[2].tolist()
+        require(got_ok[:n_good] == [len(r) <= out_cap for r in raws],
+                f"every good deflate stream decodes ok at out_cap {out_cap}")
+        require(not any(got_ok[n_good:-1]), "the malformed and cut streams fail")
+        for i, r in enumerate(raws):
+            require(k[0][i, :min(len(r), out_cap)].cpu().numpy().tobytes() == r[:out_cap],
+                    f"deflate case {i} equals its original")
+    codec = DeflateBatchCodec(device=dev)
+    good_blobs = blobs[:3]
+    for name, b in bad:
+        try:
+            codec.decompress_chunks(good_blobs + [b])
+            raise RuntimeError(f"check failed: the deflate codec rejects '{name}'")
+        except MalformedInputException as e:
+            require(e.offset == 3, f"'{name}' is named as chunk 3, got {e.offset}")
+            print(f"deflate codec: '{name}' -> MalformedInputException(3, {e.reason!r})")
+    print(f"deflate decode: {len(items)} chunks ({n_good} good, levels 1/6/9, fixed, "
+          f"stored, a {int(plan.info[flushed, 1])}-block full-flush chunk and "
+          f"{len(full)} of 64 KB corpus chunks; {n_bad} malformed; 2 changed after "
+          f"planning) at out_cap {CHUNK} and 4096, kernel == plain, max_abs_err {err}; "
+          f"planner {t_plan:.4f} s, plain {t_plain:.2f} s (host clock, both caps)")
+    return dict(err=err, full=full)
+
+
+def tile_plan(plan, n: int):
+    """A packed deflate plan repeated n times, for a batch tiled n times."""
+    from aircompressor_tpu_torch.host.deflate.plan import Plan
+
+    nb, nt = plan.desc.shape[0], plan.tabs.shape[0]
+    shift = np.array([nb, 0, nt, 0], np.int64)
+    index = np.concatenate([plan.index + k * shift for k in range(n)]).astype(np.int32)
+    return Plan(np.tile(plan.desc, (n, 1)), np.tile(plan.tabs, n), index,
+                np.tile(plan.info, (n, 1)))
+
+
+def lzo_path(dev, corpus: list[bytes], sustain: int = SUSTAIN) -> dict:
+    """The LZO path: the corpus through the host encoder
+    (``LzoBatchCodec.compress_chunks``), ``decompress_chunks`` on its blocks,
+    then the blocks tiled ``sustain`` times through the LZO decode kernel
+    and the xxh64 kernel, with the launch counts set to 0 just before and
+    read just after. Every byte and every XXH64 is checked."""
+    from aircompressor_tpu_torch.host.xxhash import xxh64 as host_xxh64
+    from aircompressor_tpu_torch.ops import lzo_decode, xxhash
+    from aircompressor_tpu_torch.ops.batch import (
+        LzoBatchCodec, _pack, _round_up, to_device_batch)
+
+    print("== LZO path at real size (generated corpus)", flush=True)
+    n = len(corpus)
+    codec = LzoBatchCodec()  # the card by default
+    t0 = time.perf_counter()
+    blobs = codec.compress_chunks(corpus)
+    t_compress = time.perf_counter() - t0
+    raw, raw_lens = to_device_batch(*_pack(corpus, CHUNK), dev)
+    comp, comp_lens = to_device_batch(*_pack(blobs, _round_up(max(map(len, blobs)), 16)), dev)
+    big, big_lens = comp.repeat(sustain, 1), comp_lens.repeat(sustain)
+    want_hash = [host_xxh64(c) for c in corpus] * sustain
+    lzo_decode.launches = lzo_decode.rows = xxhash.launches = 0
+    t0 = time.perf_counter()
+    decoded = codec.decompress_chunks(blobs)  # its canary runs here
+    t_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = codec.decompress_chunks(blobs)
+    t_codec = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out, out_lens, ok = lzo_decode.decode(big, big_lens)
+    digest = xxhash.xxh64(out, out_lens)
+    torch.cuda.synchronize()
+    t_big = time.perf_counter() - t0
+    counts = {"lzo_decode": lzo_decode.launches, "xxh64": xxhash.launches}
+    rows = lzo_decode.rows
+
+    n_all = 1 + 2 * n + n * sustain  # the canary, two codec batches, the tiles
+    require(all(c > 0 for c in counts.values()), f"the LZO path's kernels launched: {counts}")
+    require(rows == n_all, f"every LZO chunk went through the kernel: {rows}/{n_all}")
+    require(decoded == corpus and again == corpus,
+            "LzoBatchCodec.decompress_chunks returns the corpus")
+    require(bool(ok.all()), "every tiled LZO chunk decodes ok")
+    require(torch.equal(out_lens, raw_lens.repeat(sustain)) and
+            torch.equal(out, raw.repeat(sustain, 1)), "every tiled LZO chunk decodes to its original")
+    require([v & (2**64 - 1) for v in digest.tolist()] == want_hash,
+            "every xxh64 of a decoded LZO chunk equals the host's of its original")
+    comp_bytes = sum(map(len, blobs))
+    print(f"LzoBatchCodec.compress_chunks (host encoder): {n} chunks, "
+          f"{sum(map(len, corpus))} B -> {comp_bytes} B in {t_compress:.2f} s (host clock)")
+    print(f"LzoBatchCodec.decompress_chunks: {n} chunks in {t_codec:.4f} s (host clock, "
+          f"staging and copies included; first call with its canary {t_first:.4f} s)")
+    print(f"tiled x{sustain}: {big.shape[0]} chunks decoded and xxh64-hashed in "
+          f"{t_big:.3f} s (host clock, first call); launches {counts}, {rows} of {n_all} "
+          f"chunks through the LZO kernel")
+    return dict(comp=comp, comp_lens=comp_lens, big=big, big_lens=big_lens,
+                counts=counts, comp_bytes=comp_bytes, decoded_bytes=int(out_lens.sum()),
+                t_codec=t_codec)
+
+
+def deflate_path(dev, corpus: list[bytes], sustain: int = SUSTAIN) -> dict:
+    """The deflate path: the corpus through zlib at level 6
+    (``DeflateBatchCodec.compress_chunks``), ``decompress_chunks`` on its
+    streams, then the streams planned once, the plan and the streams tiled
+    ``sustain`` times, through the deflate decode kernel and the xxh64
+    kernel, with the launch counts set to 0 just before and read just
+    after. Every byte and every XXH64 is checked, and every chunk went
+    through the kernel."""
+    from aircompressor_tpu_torch.host.deflate import plan as deflate_plan
+    from aircompressor_tpu_torch.host.xxhash import xxh64 as host_xxh64
+    from aircompressor_tpu_torch.ops import deflate_decode, xxhash
+    from aircompressor_tpu_torch.ops.batch import (
+        DeflateBatchCodec, _pack, _round_up, to_device_batch)
+
+    print("== deflate path at real size (generated corpus)", flush=True)
+    n = len(corpus)
+    codec = DeflateBatchCodec()  # the card by default, level 6
+    t0 = time.perf_counter()
+    blobs = codec.compress_chunks(corpus)
+    t_compress = time.perf_counter() - t0
+    raw, raw_lens = to_device_batch(*_pack(corpus, CHUNK), dev)
+    buf, lens = _pack(blobs, _round_up(max(map(len, blobs)), 16))
+    want_hash = [host_xxh64(c) for c in corpus] * sustain
+    deflate_decode.launches = deflate_decode.rows = xxhash.launches = 0
+    t0 = time.perf_counter()
+    decoded = codec.decompress_chunks(blobs)  # its canary runs here
+    t_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = codec.decompress_chunks(blobs)
+    t_codec = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = deflate_plan.plan(buf, lens)
+    t_plan = time.perf_counter() - t0
+    comp, comp_lens = to_device_batch(buf, lens, dev)
+    big, big_lens = comp.repeat(sustain, 1), comp_lens.repeat(sustain)
+    t0 = time.perf_counter()
+    big_plan = deflate_decode.upload(tile_plan(plan, sustain), dev)
+    out, out_lens, ok = deflate_decode.decode(big, big_lens, big_plan)
+    digest = xxhash.xxh64(out, out_lens)
+    torch.cuda.synchronize()
+    t_big = time.perf_counter() - t0
+    counts = {"deflate_decode": deflate_decode.launches, "xxh64": xxhash.launches}
+    rows = deflate_decode.rows
+
+    n_all = 1 + 2 * n + n * sustain  # the canary, two codec batches, the tiles
+    require(all(c > 0 for c in counts.values()), f"the deflate path's kernels launched: {counts}")
+    require(rows == n_all, f"every deflate chunk went through the kernel: {rows}/{n_all}")
+    require(decoded == corpus and again == corpus,
+            "DeflateBatchCodec.decompress_chunks returns the corpus")
+    require(bool((plan.info[:, 3] == deflate_plan.ST_OK).all()), "every corpus stream plans")
+    require(bool(ok.all()), "every tiled deflate chunk decodes ok")
+    require(torch.equal(out_lens, raw_lens.repeat(sustain)) and
+            torch.equal(out, raw.repeat(sustain, 1)),
+            "every tiled deflate chunk decodes to its original")
+    require([v & (2**64 - 1) for v in digest.tolist()] == want_hash,
+            "every xxh64 of a decoded deflate chunk equals the host's of its original")
+    comp_bytes = int(lens.sum())
+    plan_bytes = 4 * (plan.desc.size + plan.tabs.size + plan.index.size)
+    print(f"DeflateBatchCodec.compress_chunks (zlib level 6): {n} chunks, "
+          f"{sum(map(len, corpus))} B -> {comp_bytes} B in {t_compress:.3f} s (host clock)")
+    print(f"DeflateBatchCodec.decompress_chunks: {n} chunks in {t_codec:.4f} s (host "
+          f"clock, planner, staging and copies included; first call with its canary "
+          f"{t_first:.4f} s); planner alone {t_plan:.4f} s for {n} chunks, "
+          f"{int(plan.info[:, 1].sum())} blocks, {plan_bytes} B of plan")
+    print(f"tiled x{sustain}: {big.shape[0]} chunks (plan tiled, not replanned) decoded "
+          f"and xxh64-hashed in {t_big:.3f} s (host clock, first call, upload included); "
+          f"launches {counts}, {rows} of {n_all} chunks through the deflate kernel")
+    return dict(comp=comp, comp_lens=comp_lens, plan=deflate_decode.upload(plan, dev),
+                big=big, big_lens=big_lens, big_plan=big_plan, counts=counts,
+                comp_bytes=comp_bytes, plan_bytes=plan_bytes,
+                decoded_bytes=int(out_lens.sum()), t_plan=t_plan, t_codec=t_codec)
+
+
+def lzo_deflate_times(dev, lk: dict, lp: dict, dk: dict, dp: dict) -> list[dict]:
+    """Time the LZO and deflate kernels by CUDA events on the six 64 KB
+    corpus chunks (beside their plain versions, in turns), on the corpus's
+    256 chunks and on the 4096 tiled chunks, each beside its bytes bound:
+    the blocks, their lengths and (deflate) the plan in, every row's bytes,
+    length and flag out. Return their lines of the kernels JSON."""
+    from aircompressor_tpu_torch.host.deflate import plan as deflate_plan
+    from aircompressor_tpu_torch.ops import deflate_decode, lzo_decode
+    from aircompressor_tpu_torch.ops.batch import _pack, _round_up, to_device_batch
+
+    def staged(blobs):
+        buf, lens = _pack(blobs, _round_up(max(map(len, blobs)), 16))
+        return buf, lens, to_device_batch(buf, lens, dev)
+
+    _, _, lzo_full = staged(lk["full"])
+    buf, lens, dfull = staged(dk["full"])
+    full_plan = deflate_plan.plan(buf, lens)
+    runs = [  # name, module, (six chunks, 256, 4096) arguments, their plan bytes
+        ("lzo_decode", lzo_decode, lk, lp, 52,
+         (lzo_full, (lp["comp"], lp["comp_lens"]), (lp["big"], lp["big_lens"])), (0, 0, 0)),
+        ("deflate_decode", deflate_decode, dk, dp, 61,
+         ((*dfull, deflate_decode.upload(full_plan, dev)),
+          (dp["comp"], dp["comp_lens"], dp["plan"]),
+          (dp["big"], dp["big_lens"], dp["big_plan"])),
+         (4 * (full_plan.desc.size + full_plan.tabs.size + full_plan.index.size),
+          dp["plan_bytes"], dp["plan_bytes"] * SUSTAIN))]
+    entries = []
+    for name, mod, check, path, line, (full, mid, big), plan_bytes in runs:
+        ms, plain_ms = paired_ms(lambda: mod.decode(*full), lambda: mod.decode_plain(*full),
+                                 10, 1)
+        ms_mid, ms_big = time_ms(lambda: mod.decode(*mid), 10), time_ms(lambda: mod.decode(*big), 3)
+        b_full, b_mid, b_big = (
+            bound_ms(comp_bytes + 4 * b + pb, b * CHUNK + 5 * b) for comp_bytes, b, pb in (
+                (sum(map(len, check["full"])), len(check["full"]), plan_bytes[0]),
+                (path["comp_bytes"], N_CHUNKS, plan_bytes[1]),
+                (path["comp_bytes"] * SUSTAIN, N_CHUNKS * SUSTAIN, plan_bytes[2])))
+        print(f"{name}: 6 chunks of 64 KB: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {b_full:.5f} ms; {N_CHUNKS} chunks: kernel {ms_mid:.4f} ms "
+              f"({gbps(path['decoded_bytes'] / SUSTAIN, ms_mid):.3f} GB/s), bound "
+              f"{b_mid:.5f} ms; {N_CHUNKS * SUSTAIN} chunks: kernel {ms_big:.4f} ms "
+              f"({gbps(path['decoded_bytes'], ms_big):.3f} GB/s decoded), bound {b_big:.5f} ms")
+        entries.append({
+            "name": name, "route": "cuda", "source": f"aircompressor_tpu_torch/csrc/{name}.cu",
+            "replaces": f"aircompressor_tpu/ops/{name.split('_')[0]}_pallas_w.py:{line}",
+            "launches": path["counts"][name], "max_abs_err": check["err"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_full, "bound_by": "bytes",
+            "library_ms": None, "batch": "6 corpus chunks of 64 KB",
+            "chunks": N_CHUNKS, "chunks_ms": ms_mid, "chunks_bound_ms": b_mid,
+            "tiled_chunks": N_CHUNKS * SUSTAIN, "tiled_ms": ms_big, "tiled_bound_ms": b_big})
+    print(f"deflate planner on the host: {N_CHUNKS} chunks in {dp['t_plan']:.4f} s (host "
+          f"clock) beside the kernel's {entries[1]['chunks_ms']:.4f} ms")
+    return entries
+
+
 def main() -> None:
     print("== device", flush=True)
     if not torch.cuda.is_available():
@@ -708,6 +1190,8 @@ def main() -> None:
           f"max_abs_err {xxh32_err}")
 
     zk = zstd_kernels_against_plain(dev)
+    lk = lzo_kernel_against_plain(dev)
+    dk = deflate_kernel_against_plain(dev)
 
     codec = SnappyBatchCodec()  # the card by default; its canaries run here
     short = [c for c in cases if len(c) <= CHUNK]
@@ -920,6 +1404,8 @@ def main() -> None:
     print(f"LZ4 path launches {lz4_counts}, rows {lz4_rows} ({n_lz4} chunks)")
 
     zp = zstd_decode_path(dev, corpus)
+    lp = lzo_path(dev, corpus)
+    dp = deflate_path(dev, corpus)
 
     print("== times (CUDA events)", flush=True)
     comp, comp_lens = to_device_batch(
@@ -1022,6 +1508,7 @@ def main() -> None:
           f"{gbps(raw_big, lze_big_ms + lzd_big_ms + x32_big_ms):.3f} GB/s")
 
     z_entries = zstd_kernel_times(zk, zp)
+    ld_entries = lzo_deflate_times(dev, lk, lp, dk, dp)
 
     kernels = [
         {"name": "snappy_decode", "route": "cuda",
@@ -1082,7 +1569,7 @@ def main() -> None:
          "tiled_chunks": big_raw.shape[0], "tiled_ms": x32_big_ms,
          "tiled_bound_ms": xxh_bound(raw_big, big_raw.shape[0])},
     ]
-    kernels += z_entries
+    kernels += z_entries + ld_entries
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

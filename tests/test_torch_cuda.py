@@ -14,21 +14,25 @@ import torch
 from aircompressor_tpu_torch.errors import MalformedInputException
 from aircompressor_tpu_torch.host import framed
 from aircompressor_tpu_torch.host import lz4 as host_lz4
+from aircompressor_tpu_torch.host import lzo as host_lzo
 from aircompressor_tpu_torch.host import snappy as host_snappy
 from aircompressor_tpu_torch.host.crc32c import crc32c_raw
 from aircompressor_tpu_torch.host.xxhash import xxh32 as host_xxh32
 from aircompressor_tpu_torch.host.xxhash import xxh64 as host_xxh64
 from aircompressor_tpu_torch.data import libzstd_frames
+from aircompressor_tpu_torch.host.deflate import plan as deflate_plan
 from aircompressor_tpu_torch.host.zstd import device_prep
 from aircompressor_tpu_torch.host.zstd import frame_enc as host_zstd_enc
 from aircompressor_tpu_torch.ops import (
-    checksum, lz4_decode, lz4_encode, snappy_decode, snappy_encode, xxhash,
-    zstd_decode)
+    checksum, deflate_decode, lz4_decode, lz4_encode, lzo_decode, snappy_decode,
+    snappy_encode, xxhash, zstd_decode)
 from aircompressor_tpu_torch.ops.batch import (
-    Lz4BatchCodec, SnappyBatchCodec, ZstdBatchCodec, _pack, _selfcheck_payload,
-    snappy_framed_decompress_device, to_device_batch)
+    DeflateBatchCodec, Lz4BatchCodec, LzoBatchCodec, SnappyBatchCodec, ZstdBatchCodec,
+    _pack, _selfcheck_payload, deflate_raw, snappy_framed_decompress_device,
+    to_device_batch)
 from chip_smoke import (
-    LZ4_EDGE_BLOCKS, backward_cap_case, lz4_length_edges_case, lz4_malformed_cases,
+    LZ4_EDGE_BLOCKS, LZO_EDGE_BLOCKS, LZO_EDGE_CAP, backward_cap_case, deflate_cases,
+    deflate_malformed_cases, lz4_length_edges_case, lz4_malformed_cases, lzo_cases,
     zstd_cases, zstd_full_cases, zstd_malformed_cases)
 
 pytestmark = pytest.mark.cuda
@@ -303,3 +307,66 @@ def test_zstd_decode_on_device(device):
         with pytest.raises(MalformedInputException) as exc:
             zstd_decode.decode_batch([frames[0], bad, frames[1]], device=device)
         assert (exc.value.offset, exc.value.reason) == (1, reason), name
+
+
+@pytest.mark.parametrize("out_cap", [65536, LZO_EDGE_CAP])
+def test_lzo_decode_kernel_equals_plain(device, out_cap):
+    raws = lzo_cases() + [_selfcheck_payload(s) for s in (1, 2)]
+    blobs = [host_lzo.compress(r) for r in raws] + [b for b, _, _ in LZO_EDGE_BLOCKS]
+    comp, lens = to_device_batch(*_pack(blobs, max(map(len, blobs)) + 3), device)
+    before = lzo_decode.launches
+    got = lzo_decode.decode(comp, lens, out_cap=out_cap)
+    assert lzo_decode.launches == before + 1
+    for g, w in zip(got, lzo_decode.decode_plain(comp, lens, out_cap=out_cap)):
+        assert g.device.type == "cuda"
+        assert torch.equal(g, w)
+    out, out_lens, ok = (t.cpu().numpy() for t in got)
+    for i, r in enumerate(raws):
+        assert ok[i] == (len(r) <= out_cap) and out_lens[i] == len(r), i
+        assert out[i, :min(len(r), out_cap)].tobytes() == r[:out_cap], i
+    if out_cap == LZO_EDGE_CAP:
+        edge = list(zip(ok.tolist(), out_lens.tolist()))[len(raws):]
+        assert edge == [(o, n) for _, o, n in LZO_EDGE_BLOCKS]
+
+
+@pytest.mark.parametrize("out_cap", [65536, 4096])
+def test_deflate_decode_kernel_equals_plain(device, out_cap):
+    """The deflate cases, the malformed streams, and a stream cut after
+    planning."""
+    blobs, raws = deflate_cases()
+    items = blobs + [b for _, b in deflate_malformed_cases()] + [blobs[-1]]
+    buf, lens = _pack(items, max(map(len, items)) + 3)
+    plan = deflate_plan.plan(buf, lens)
+    lens[-1] //= 2
+    comp, comp_lens = to_device_batch(buf, lens, device)
+    dplan = deflate_decode.upload(plan, device)
+    before = deflate_decode.launches
+    got = deflate_decode.decode(comp, comp_lens, dplan, out_cap=out_cap)
+    assert deflate_decode.launches == before + 1
+    for g, w in zip(got, deflate_decode.decode_plain(comp, comp_lens, dplan, out_cap=out_cap)):
+        assert g.device.type == "cuda"
+        assert torch.equal(g, w)
+    out, out_lens, ok = (t.cpu().numpy() for t in got)
+    for i, r in enumerate(raws):
+        assert ok[i] == (len(r) <= out_cap) and out_lens[i] == len(r), i
+        assert out[i, :min(len(r), out_cap)].tobytes() == r[:out_cap], i
+    assert not ok[len(raws):].any()
+    assert 0 < out_lens[-1] < len(raws[-1])
+
+
+def test_lzo_and_deflate_codecs_on_device(device, synthetic):
+    raws = [c[:65536] for _, c in synthetic] + [_selfcheck_payload(4)]
+    for codec, mod in ((LzoBatchCodec(device=device), lzo_decode),
+                       (DeflateBatchCodec(device=device), deflate_decode)):
+        blobs = codec.compress_chunks(raws)
+        before = mod.rows
+        assert codec.decompress_chunks(blobs) == raws
+        assert mod.rows - before == 1 + len(raws)  # and the canary
+        bad = blobs[:2] + [blobs[2][:len(blobs[2]) // 2]]
+        with pytest.raises(MalformedInputException) as exc:
+            codec.decompress_chunks(bad)
+        assert exc.value.offset == 2
+    with pytest.raises(MalformedInputException) as exc:
+        DeflateBatchCodec(device=device).decompress_chunks(
+            [deflate_raw(b"abc")] + [b for _, b in deflate_malformed_cases()])
+    assert exc.value.offset == 1

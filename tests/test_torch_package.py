@@ -17,6 +17,8 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "aircompressor_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
+NATIVE_FILES = sorted(p for ext in ("*.cc", "*.cu", "*.h", "*.cuh")
+                      for p in (ROOT / "aircompressor_tpu_torch").rglob(ext))
 BLOCKED = ("jax", "aircompressor_tpu")
 
 
@@ -38,6 +40,9 @@ def test_port_imports_with_jax_blocked():
             "import aircompressor_tpu_torch, chip_smoke\n"
             "import aircompressor_tpu_torch.ops.zstd_decode\n"
             "import aircompressor_tpu_torch.host.zstd, aircompressor_tpu_torch.data\n"
+            "import aircompressor_tpu_torch.host.deflate.plan\n"
+            "import aircompressor_tpu_torch.ops.lzo_decode\n"
+            "import aircompressor_tpu_torch.ops.deflate_decode\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "assert aircompressor_tpu_torch.ops.xxhash.launches == 0\n"
             "loaded = sorted(m for m in sys.modules\n"
@@ -73,6 +78,39 @@ def test_port_sources_name_no_jax_package():
     """No module of the port and no line of chip_smoke.py imports
     ``aircompressor_tpu`` (``aircompressor_tpu_torch`` is the port)."""
     _assert_sources_never_import("aircompressor_tpu")
+
+
+def _code_lines(path: Path) -> list[str]:
+    """The lines of a C++ or CUDA source with // comments cut off."""
+    return [line.split("//")[0] for line in path.read_text().splitlines()]
+
+
+def test_native_sources_stand_alone():
+    """The port's C++ and CUDA sources (the deflate planner's copy
+    included) name no file of the JAX package in their code, and include
+    only system headers or headers of their own."""
+    assert any(p.suffix == ".cc" for p in NATIVE_FILES)
+    for path in NATIVE_FILES:
+        for line in _code_lines(path):
+            assert "aircompressor_tpu" not in line, (path, line)
+            words = line.split()
+            if words[:1] == ["#include"] and not words[1].startswith("<"):
+                assert (path.parent / words[1].strip('"')).exists(), (path, line)
+
+
+def test_lzo_and_deflate_run_with_jax_blocked():
+    """The LZO and deflate codecs round-trip on the CPU with jax and the JAX
+    package blocked: the host LZO encoder, zlib, the g++-built planner and
+    the plain decodes."""
+    code = ("import sys\n"
+            f"for name in {BLOCKED!r}: sys.modules[name] = None\n"
+            "from aircompressor_tpu_torch.ops.batch import (\n"
+            "    DeflateBatchCodec, LzoBatchCodec, _selfcheck_payload)\n"
+            "raws = [_selfcheck_payload(i)[-3000:] for i in range(3)] + [b'ab' * 900]\n"
+            "for c in (LzoBatchCodec(device='cpu'), DeflateBatchCodec(device='cpu')):\n"
+            "    assert c.decompress_chunks(c.compress_chunks(raws)) == raws\n")
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_source_scan_sees_package_imports():
