@@ -1,4 +1,4 @@
-// Batched XXH32 with seed 0, one thread per stream.
+// Batched XXH32 with a seed, one thread per stream.
 //
 // Replaces aircompressor_tpu/ops/xxhash_jax.py::xxh32, which is XLA there, not
 // Pallas: each 16-byte stripe depends on the one before, so in tensor ops a
@@ -48,7 +48,7 @@ template <bool kAligned>
 __global__ void __launch_bounds__(kThreadsPerBlock)
 xxh32_kernel(const uint8_t* __restrict__ data,
              const int32_t* __restrict__ lengths, int batch, int row_len,
-             int64_t* __restrict__ out) {
+             uint32_t seed, int64_t* __restrict__ out) {
   const int row = blockIdx.x * kThreadsPerBlock + threadIdx.x;
   if (row >= batch) return;
   const uint8_t* p = data + static_cast<size_t>(row) * row_len;
@@ -57,7 +57,7 @@ xxh32_kernel(const uint8_t* __restrict__ data,
   int off = 0;
   uint32_t h;
   if (n >= 16) {
-    uint32_t v1 = kP1 + kP2, v2 = kP2, v3 = 0, v4 = 0u - kP1;
+    uint32_t v1 = seed + kP1 + kP2, v2 = seed + kP2, v3 = seed, v4 = seed - kP1;
     for (; off + 16 <= n; off += 16) {
       v1 = round32(v1, load32<kAligned>(p + off));
       v2 = round32(v2, load32<kAligned>(p + off + 4));
@@ -66,7 +66,7 @@ xxh32_kernel(const uint8_t* __restrict__ data,
     }
     h = rotl(v1, 1) + rotl(v2, 7) + rotl(v3, 12) + rotl(v4, 18);
   } else {
-    h = kP5;
+    h = seed + kP5;
   }
   h += static_cast<uint32_t>(n);
 
@@ -83,10 +83,10 @@ xxh32_kernel(const uint8_t* __restrict__ data,
 
 }  // namespace
 
-// Launches the hash on `stream` and returns cudaGetLastError(). out is a
-// (batch,) int64 buffer that receives each hash's 32 bits.
+// Launches the hash with `seed` on `stream` and returns cudaGetLastError().
+// out is a (batch,) int64 buffer that receives each hash's 32 bits.
 extern "C" int acx_xxh32(const void* data, const void* lengths, int batch,
-                         int row_len, void* out, void* stream) {
+                         int row_len, uint32_t seed, void* out, void* stream) {
   if (batch > 0) {
     const int blocks = (batch + kThreadsPerBlock - 1) / kThreadsPerBlock;
     const bool aligned =
@@ -96,9 +96,9 @@ extern "C" int acx_xxh32(const void* data, const void* lengths, int batch,
     const auto* l = static_cast<const int32_t*>(lengths);
     auto* o = static_cast<int64_t*>(out);
     if (aligned)
-      xxh32_kernel<true><<<blocks, kThreadsPerBlock, 0, s>>>(d, l, batch, row_len, o);
+      xxh32_kernel<true><<<blocks, kThreadsPerBlock, 0, s>>>(d, l, batch, row_len, seed, o);
     else
-      xxh32_kernel<false><<<blocks, kThreadsPerBlock, 0, s>>>(d, l, batch, row_len, o);
+      xxh32_kernel<false><<<blocks, kThreadsPerBlock, 0, s>>>(d, l, batch, row_len, seed, o);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-// Batched XXH64 with seed 0, one thread per stream.
+// Batched XXH64 with a seed, one thread per stream.
 //
 // Replaces the TPU kernel aircompressor_tpu/ops/xxhash_pallas.py::_stripe_kernel
 // together with the merge, tail and avalanche that ran after it as jnp code
@@ -61,7 +61,7 @@ template <bool kAligned>
 __global__ void __launch_bounds__(kThreadsPerBlock)
 xxh64_kernel(const uint8_t* __restrict__ data,
              const int32_t* __restrict__ lengths, int batch, int row_len,
-             uint64_t* __restrict__ out) {
+             uint64_t seed, uint64_t* __restrict__ out) {
   const int row = blockIdx.x * kThreadsPerBlock + threadIdx.x;
   if (row >= batch) return;
   const uint8_t* p = data + static_cast<size_t>(row) * row_len;
@@ -70,7 +70,7 @@ xxh64_kernel(const uint8_t* __restrict__ data,
   int off = 0;
   uint64_t h;
   if (n >= 32) {
-    uint64_t v1 = kP1 + kP2, v2 = kP2, v3 = 0, v4 = 0 - kP1;
+    uint64_t v1 = seed + kP1 + kP2, v2 = seed + kP2, v3 = seed, v4 = seed - kP1;
     for (; off + 32 <= n; off += 32) {
       v1 = round64(v1, load64<kAligned>(p + off));
       v2 = round64(v2, load64<kAligned>(p + off + 8));
@@ -83,7 +83,7 @@ xxh64_kernel(const uint8_t* __restrict__ data,
     h = merge64(h, v3);
     h = merge64(h, v4);
   } else {
-    h = kP5;
+    h = seed + kP5;
   }
   h += static_cast<uint64_t>(n);
 
@@ -105,10 +105,10 @@ xxh64_kernel(const uint8_t* __restrict__ data,
 
 }  // namespace
 
-// Launches the hash on `stream` and returns cudaGetLastError(). out is a
-// (batch,) int64 buffer that receives each hash's 64 bits.
+// Launches the hash with `seed` on `stream` and returns cudaGetLastError().
+// out is a (batch,) int64 buffer that receives each hash's 64 bits.
 extern "C" int acx_xxh64(const void* data, const void* lengths, int batch,
-                         int row_len, void* out, void* stream) {
+                         int row_len, uint64_t seed, void* out, void* stream) {
   if (batch > 0) {
     const int blocks = (batch + kThreadsPerBlock - 1) / kThreadsPerBlock;
     const bool aligned =
@@ -118,9 +118,9 @@ extern "C" int acx_xxh64(const void* data, const void* lengths, int batch,
     const auto* l = static_cast<const int32_t*>(lengths);
     auto* o = static_cast<uint64_t*>(out);
     if (aligned)
-      xxh64_kernel<true><<<blocks, kThreadsPerBlock, 0, s>>>(d, l, batch, row_len, o);
+      xxh64_kernel<true><<<blocks, kThreadsPerBlock, 0, s>>>(d, l, batch, row_len, seed, o);
     else
-      xxh64_kernel<false><<<blocks, kThreadsPerBlock, 0, s>>>(d, l, batch, row_len, o);
+      xxh64_kernel<false><<<blocks, kThreadsPerBlock, 0, s>>>(d, l, batch, row_len, seed, o);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,7 +6,11 @@
   decodes frames only through them; it has no host frame decoder);
 - ``params``, ``fse_enc``, ``huff_enc``, ``seq_enc``, ``block_enc``,
   ``frame_enc``: the host encoder (``frame_enc.compress_bytes``), which
-  makes the frames of the checks where no other zstd encoder is installed.
+  makes the frames of the checks where no other zstd encoder is installed
+  and the frames of chunks the batched compress does not plan;
+- ``device_enc``: the host half of batched compress (``ops/zstd_encode``):
+  the proposal check, the per-chunk plan, the emission kernel's packed
+  arrays and frame assembly.
 
 Imports are rewritten to the port's own modules; behaviour is unchanged.
 """

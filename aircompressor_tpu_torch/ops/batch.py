@@ -3,15 +3,16 @@ surface over the kernels.
 
 Counterpart of ``aircompressor_tpu.ops.batch``'s ``SnappyBatchCodec``,
 ``Lz4BatchCodec``, ``LzoBatchCodec``, ``DeflateBatchCodec``,
-``ZstdBatchCodec`` (decode) and ``snappy_framed_decompress_device``. Every
-chunk to decode goes to the kernels: the decode kernels read their input
-from device memory and have no limit on the compressed length or on a
-deflate chunk's blocks, so there is no host tier for large blobs. Every
-Snappy or LZ4 chunk to compress goes through an encode kernel; LZO and
-deflate compress on the host, as in the JAX package. Before its first batch
-each way, a codec runs a 64 KB canary through the kernels and raises if the
-bytes differ; there is no fallback. A codec runs on the card unless it is
-given ``device="cpu"``, where the plain PyTorch versions run.
+``ZstdBatchCodec`` and ``snappy_framed_decompress_device``. Every chunk to
+decode goes to the kernels: the decode kernels read their input from device
+memory and have no limit on the compressed length or on a deflate chunk's
+blocks, so there is no host tier for large blobs. Every Snappy or LZ4 chunk
+to compress goes through an encode kernel, and zstd through its matcher
+and emission kernels around a host planner; LZO and deflate compress on
+the host, as in the JAX package. Before its first batch each way, a codec
+runs a 64 KB canary through the kernels and raises if the bytes differ;
+there is no fallback. A codec runs on the card unless it is given
+``device="cpu"``, where the plain PyTorch versions run.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from ..host.crc32c import crc32c_raw, mask_crc
 from ..host.deflate import plan as deflate_plan
 from ..host.zstd import frame_enc as host_zstd_enc
 from . import (checksum, deflate_decode, lz4_decode, lz4_encode, lzo_decode,
-               snappy_decode, snappy_encode, zstd_decode)
+               snappy_decode, snappy_encode, zstd_decode, zstd_encode)
 
 CHUNK = 65536
 
@@ -295,17 +296,23 @@ class DeflateBatchCodec:
 
 
 class ZstdBatchCodec:
-    """Frame-parallel zstd decode of single-frame blobs of up to ``max_chunk``
-    bytes each, on ``device`` (the card by default), through the three
-    kernels of ``zstd_decode``; every frame goes through them, with no host
-    fallback. Encoding is not ported yet."""
+    """Frame-parallel zstd of chunks of up to ``max_chunk`` bytes each, one
+    single-block frame a chunk, on ``device`` (the card by default).
+    ``compress_chunks`` runs ``zstd_encode.compress_batch`` at ``level``:
+    the DFAST matcher kernel (level 3), the host planner, the emission
+    kernel and host frame assembly; ``decompress_chunks`` the three kernels
+    of ``zstd_decode``. Every frame goes through them, with no host
+    fallback. Before its first batch each way, the codec runs a canary
+    through them and raises if it does not come back exact."""
 
-    def __init__(self, max_chunk: int = CHUNK, *, device="cuda"):
+    def __init__(self, max_chunk: int = CHUNK, level: int = 3, *, device="cuda"):
         if max_chunk > CHUNK:
             raise ValueError(f"zstd device chunks are capped at {CHUNK} bytes")
         self.max_chunk = max_chunk
+        self.level = level
         self.device = torch.device(device)
         self._decode_checked = False
+        self._encode_checked = False
 
     def _decode_self_check(self) -> None:
         payload, frame = _zstd_canary()
@@ -314,9 +321,32 @@ class ZstdBatchCodec:
             raise RuntimeError(f"zstd decode failed its self-check on {self.device}")
         self._decode_checked = True
 
+    def _encode_self_check(self) -> None:
+        """The 64 KB canary and a 1600-byte tiled string (the payloads of
+        the JAX codec's encode self-check), compressed at ``level`` and
+        decoded by the port's own zstd decode."""
+        payloads = [_selfcheck_payload(), bytes(np.tile(np.frombuffer(
+            b"zstd device encode self check 0123456789", np.uint8), 40))]
+        frames = zstd_encode.compress_batch(payloads, self.level, device=self.device)
+        try:
+            ok = zstd_decode.decode_batch(frames, device=self.device) == payloads
+        except MalformedInputException as e:
+            raise RuntimeError(f"zstd encode failed its self-check on {self.device}: "
+                               f"{e}") from e
+        if not ok:
+            raise RuntimeError(f"zstd encode failed its self-check on {self.device}")
+        self._encode_checked = True
+
     def compress_chunks(self, chunks: Sequence[bytes]) -> list[bytes]:
-        raise NotImplementedError(
-            "the zstd device encoder is not ported yet (ROADMAP Queue 1 item 10)")
+        """One zstd frame for each chunk; raises ValueError for a chunk over
+        ``max_chunk`` and RuntimeError where the matcher kernel flags a
+        chunk or proposes sequences that fail the host check."""
+        if not chunks:
+            return []
+        _check_capacity(chunks, self.max_chunk)
+        if not self._encode_checked:
+            self._encode_self_check()
+        return zstd_encode.compress_batch(chunks, self.level, device=self.device)
 
     def decompress_chunks(self, blobs: Sequence[bytes]) -> list[bytes]:
         """Decode each blob, one zstd frame each; raises

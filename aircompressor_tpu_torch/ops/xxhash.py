@@ -1,14 +1,15 @@
 """Batched XXH64 and XXH32: the CUDA kernels and their plain PyTorch versions.
 
-``xxh64(data, lengths)`` hashes row i of a (B, L) uint8 batch over its
-first ``lengths[i]`` bytes, with seed 0, and returns one (B,) int64 tensor
-that holds each hash's 64 bits: the JAX functions' ``(hi << 32) | lo``,
-read as a signed integer. ``xxh32(data, lengths)`` does the same for
-XXH32 (the LZ4 frame's checksum) and returns (B,) int64 holding the 32 hash
-bits, never negative. A length is clamped to [0, L]. Any B and L are
-accepted. They launch ``csrc/xxh64.cu`` and ``csrc/xxh32.cu`` for a CUDA
-tensor and use ``xxh64_plain`` and ``xxh32_plain`` only for a tensor on the
-CPU.
+``xxh64(data, lengths, seed=0)`` hashes row i of a (B, L) uint8 batch over
+its first ``lengths[i]`` bytes and returns one (B,) int64 tensor that holds
+each hash's 64 bits: the JAX functions' ``(hi << 32) | lo``, read as a
+signed integer. ``xxh32(data, lengths, seed=0)`` does the same for XXH32
+(the LZ4 frame's checksum) and returns (B,) int64 holding the 32 hash bits,
+never negative. The seed is taken modulo 2^64 (2^32 for XXH32), as the
+plain versions and the JAX functions take it. A length is clamped to [0,
+L]. Any B and L are accepted. They launch ``csrc/xxh64.cu`` and
+``csrc/xxh32.cu`` for a CUDA tensor and use ``xxh64_plain`` and
+``xxh32_plain`` only for a tensor on the CPU.
 
 The plain versions work on int64 tensors: XXH64's constants above 2^63 are
 written as their negative bit patterns, right shifts are made logical by
@@ -59,12 +60,12 @@ def _check(data: torch.Tensor, lengths: torch.Tensor):
     return data.contiguous(), lengths.to(torch.int32).contiguous()
 
 
-def xxh64(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """Seed-0 XXH64 of each row's prefix; see the module doc."""
+def xxh64(data: torch.Tensor, lengths: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """XXH64 of each row's prefix; see the module doc."""
     global launches
     data, lengths = _check(data, lengths)
     if data.device.type == "cpu":
-        return xxh64_plain(data, lengths)
+        return xxh64_plain(data, lengths, seed)
     if data.device.type != "cuda":
         raise ValueError(f"no xxh64 for device {data.device}")
     lib = _build.load()
@@ -73,7 +74,7 @@ def xxh64(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     if B:
         with torch.cuda.device(data.device):
             err = lib.acx_xxh64(data.data_ptr(), lengths.data_ptr(), B, L,
-                                out.data_ptr(),
+                                seed & ((1 << 64) - 1), out.data_ptr(),
                                 torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"xxh64 kernel launch failed: CUDA error {err}")
@@ -146,12 +147,12 @@ def xxh64_plain(data: torch.Tensor, lengths: torch.Tensor,
     return h ^ _shr(h, 32)
 
 
-def xxh32(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """Seed-0 XXH32 of each row's prefix; see the module doc."""
+def xxh32(data: torch.Tensor, lengths: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """XXH32 of each row's prefix; see the module doc."""
     global xxh32_launches, xxh32_rows
     data, lengths = _check(data, lengths)
     if data.device.type == "cpu":
-        return xxh32_plain(data, lengths)
+        return xxh32_plain(data, lengths, seed)
     if data.device.type != "cuda":
         raise ValueError(f"no xxh32 for device {data.device}")
     lib = _build.load()
@@ -160,7 +161,7 @@ def xxh32(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     if B:
         with torch.cuda.device(data.device):
             err = lib.acx_xxh32(data.data_ptr(), lengths.data_ptr(), B, L,
-                                out.data_ptr(),
+                                seed & M32, out.data_ptr(),
                                 torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"xxh32 kernel launch failed: CUDA error {err}")

@@ -31,14 +31,22 @@ read just after:
 - deflate: ``DeflateBatchCodec.compress_chunks`` (zlib level 6) and
   ``decompress_chunks`` on the corpus, then its streams planned once (the
   C++ planner, built with g++), plan and streams tiled 16 times, through
-  the deflate decode kernel and the xxh64 kernel.
+  the deflate decode kernel and the xxh64 kernel;
+- zstd compress: ``ZstdBatchCodec(level=3).compress_chunks`` on the corpus
+  (the DFAST matcher kernel, the host planner, the emission kernel and the
+  xxh64 kernel), every frame decoded back through the zstd decode kernels
+  and its size held to the host encoder's; the same batch stage by stage
+  on the host clock; then the corpus tiled 16 times through the DFAST
+  kernel and its packed plans tiled through the emission kernel.
 
 The three zstd kernels are first held against their plain versions on a
 batch of frames from the host encoder, the libzstd fixture (multi-block
 frames whose sequences use repeat offsets of earlier blocks) and malformed
 frames, and on a batch of 64 KB corpus chunks through the host encoder at
 level 3, as the zstd path gives them; the LZO and deflate kernels likewise,
-on synthetic, edge, malformed and 64 KB chunks. Every byte and hash is
+on synthetic, edge, malformed and 64 KB chunks; the DFAST matcher kernel on
+its edge cases and six 64 KB chunks, and the emission kernel on their
+plans; the xxHash kernels at nonzero seeds. Every byte and hash is
 checked against the originals and the port's
 host reference codecs. It prints the card's name and power limit, kernel and
 plain times, then one JSON line of per-kernel results, and last ``{"ok":
@@ -63,6 +71,14 @@ ENC_CUT = 8192  # the cut of the synthetic encode cases
 ZSTD_CUT = 8192  # the cut of the synthetic zstd decode cases
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 RATIO_LIMIT = 1.03  # encode size against the host reference compressor
+ZSTD_RATIO_LIMIT = 1.04  # zstd compress size against the host encoder's frames
+                         # (the JAX package's bound, tests/test_zstd_encode.py:231)
+DFAST_CUT = 8192  # the cut of the DFAST matcher's edge cases
+# The DFAST repeat case: random bytes with [A, A + M) a copy of the bytes D
+# before it, G fresh bytes, then [B, B + M2) again a copy from D before.
+REP_A, REP_D, REP_M, REP_G, REP_M2 = 2991, 1500, 300, 100, 200
+XXH_SEEDS = (0, 1, 0x9E3779B1)  # and 2^64 - 1 (XXH64) or 2^32 - 1 (XXH32)
+XXH_SEED_LENGTHS = (0, 3, 31, 32, 33, 1000)
 LZ4_RATIO_LIMIT = 1.01  # LZ4 encode size against the host LZ4 compressor on 16
                         # chunks: encode_plain's 1.000624 on the CPU, rounded up
 BAD_CRC_BLOCK = 10  # the framed block whose CRC is flipped ...
@@ -208,6 +224,43 @@ def zstd_full_cases() -> list[bytes]:
     from aircompressor_tpu_torch.ops.batch import _selfcheck_payload
 
     return [bytes(CHUNK)] + [_selfcheck_payload(seed) for seed in (0, 33, 34, 96, 251)]
+
+
+def dfast_repeat_case() -> bytes:
+    """8 KB of random bytes with two copies at distance REP_D: the first is
+    found by the tables well inside the copy and extended back to REP_A;
+    the second is taken by the repeat offset at ip + 1 (see
+    tests/test_torch_zstd_dfast.py)."""
+    x = bytearray(np.random.default_rng(17).integers(0, 256, DFAST_CUT,
+                                                     dtype=np.uint8).tobytes())
+    b = REP_A + REP_M + REP_G
+    x[REP_A:REP_A + REP_M] = x[REP_A - REP_D:REP_A - REP_D + REP_M]
+    x[b:b + REP_M2] = x[b - REP_D:b - REP_D + REP_M2]
+    return bytes(x)
+
+
+def dfast_cases() -> list[bytes]:
+    """The DFAST matcher's edge cases (one grid step of the Pallas kernel):
+    the four chunks of tests/test_zstd_dfast.py::test_edge_sizes cut to
+    DFAST_CUT, two canary heads, stitched repeats of a random vocabulary (as
+    in its test_structured_fuzz_sound) and the repeat case."""
+    from aircompressor_tpu_torch.ops.batch import _selfcheck_payload
+
+    rng = np.random.default_rng(5)
+    edge = [b"A" * 64, (b"ab" * 32768)[:DFAST_CUT],
+            bytes(rng.integers(0, 4, 64, dtype=np.uint8)), b"x" * 23]
+    rng = np.random.default_rng(991)
+    vocab = [rng.integers(0, 256, int(rng.integers(4, 900)), dtype=np.uint8).tobytes()
+             for _ in range(6)]
+    parts, total = [], 0
+    while total < DFAST_CUT:
+        w = vocab[int(rng.integers(0, len(vocab)))]
+        if rng.random() < 0.3:
+            w = w[: int(rng.integers(1, len(w) + 1))]
+        parts.append(w)
+        total += len(w)
+    return (edge + [_selfcheck_payload(s)[:DFAST_CUT] for s in (1, 2)]
+            + [b"".join(parts)[:DFAST_CUT], dfast_repeat_case()])
 
 
 def zstd_malformed_cases() -> list[tuple[str, bytes, str]]:
@@ -627,7 +680,7 @@ def zstd_decode_path(dev, corpus: list[bytes], sustain: int = SUSTAIN) -> dict:
           f"execute kernel")
     return dict(plan=plan, pk=zstd_decode.pack(plan, dev), big_plan=big_plan,
                 big_pk=big_pk, counts=counts, t_plan_big=t_plan_big,
-                decoded_bytes=int(big_lens.sum()))
+                decoded_bytes=int(big_lens.sum()), frames=frames, t_encode=t_encode)
 
 
 def zstd_kernel_times(zk: dict, zp: dict) -> list[dict]:
@@ -665,6 +718,269 @@ def zstd_kernel_times(zk: dict, zp: dict) -> list[dict]:
     print(f"zstd huffman + fse + execute, {len(zp['big_plan'].frames)} frames: "
           f"{gbps(zp['decoded_bytes'], total_big):.3f} GB/s decoded (kernels alone; the "
           f"host planner took {zp['t_plan_big']:.3f} s)")
+    return entries
+
+
+def xxhash_seeds_against_plain(dev) -> dict:
+    """Hold the xxh64 and xxh32 kernels to their plain versions and the host
+    tier at seeds 0, 1, 0x9E3779B1 and the largest seed, on 8-byte aligned
+    and unaligned rows; return each kernel's max_abs_err."""
+    from aircompressor_tpu_torch.host.xxhash import xxh32 as host_xxh32
+    from aircompressor_tpu_torch.host.xxhash import xxh64 as host_xxh64
+    from aircompressor_tpu_torch.ops import xxhash
+
+    print("== xxHash kernels at nonzero seeds", flush=True)
+    errs = {"xxh64": 0, "xxh32": 0}
+    rng = np.random.default_rng(43)
+    lens_list = list(XXH_SEED_LENGTHS)
+    for width in (1024, 1021):
+        host = rng.integers(0, 256, (len(lens_list), width), dtype=np.uint8)
+        data = torch.from_numpy(host).to(dev)
+        lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+        for name, bits, kernel, plain, scalar in (
+                ("xxh64", 64, xxhash.xxh64, xxhash.xxh64_plain, host_xxh64),
+                ("xxh32", 32, xxhash.xxh32, xxhash.xxh32_plain, host_xxh32)):
+            mask = (1 << bits) - 1
+            for seed in (*XXH_SEEDS, mask):
+                k = [v & mask for v in kernel(data, lens, seed).tolist()]
+                p = [v & mask for v in plain(data, lens, seed).tolist()]
+                s = [scalar(host[i, :n], seed) for i, n in enumerate(lens_list)]
+                require(k == p == s, f"{name} kernel == plain == host at seed {seed:#x}, "
+                                     f"L={width}")
+                errs[name] = max([errs[name]] + [abs(a - b) for a, b in zip(k, p)])
+    print(f"xxh64 and xxh32: seeds {[hex(x) for x in XXH_SEEDS]} and 2^64-1 / 2^32-1, "
+          f"lengths {lens_list}, rows of 1024 and 1021 B: kernel == plain == host, "
+          f"max_abs_err {errs}")
+    return errs
+
+
+def zstd_encode_kernels_against_plain(dev) -> dict:
+    """Hold the DFAST matcher kernel to its plain version on the DFAST edge
+    cases and six 64 KB corpus chunks (``zstd_full_cases``) at the compress
+    path's width, on every output; and the emission kernel on the plans of
+    those chunks, from the matcher kernel's proposals (level 3) and from the
+    host matcher (level 1). Tolerance 0."""
+    from aircompressor_tpu_torch.host.zstd import device_enc
+    from aircompressor_tpu_torch.ops import zstd_dfast, zstd_encode
+
+    print("== zstd compress kernels against plain on the card", flush=True)
+    edge = dfast_cases()
+    chunks, data, lens = zstd_encode.stage(edge + zstd_full_cases(), dev)
+    k = zstd_dfast.find_sequences(data, lens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = zstd_dfast.find_sequences_plain(data, lens)
+    torch.cuda.synchronize()
+    t_dfast_plain = time.perf_counter() - t0
+    for name, a, b in zip(("ll", "ml", "of", "nseq", "last_lit", "ok"), k, p):
+        require(torch.equal(a, b), f"zstd_dfast {name} equal plain")
+    require(bool(k[5].all()), "every chunk ok in the matcher")
+    dfast_err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(k, p))
+    pres = zstd_encode.match(chunks, data, lens)  # the host check of every proposal
+    plans3 = zstd_encode.plan(chunks, 3, pres)
+    plans = [q for q in plans3 + zstd_encode.plan(chunks, 1, [None] * len(chunks))
+             if q.device]
+    packed = device_enc.pack_plans(plans)
+    args = [torch.from_numpy(packed[name]).to(dev) for name, _, _ in zstd_encode.EMIT_INPUTS]
+    ke = zstd_encode.emit(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pe = zstd_encode.emit_plain(*args)
+    torch.cuda.synchronize()
+    t_emit_plain = time.perf_counter() - t0
+    for name, a, b in zip(("lit_bytes", "lit_tot", "seq_bytes", "seq_tot"), ke, pe):
+        require(torch.equal(a, b), f"zstd_emit {name} equal plain")
+    emit_err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(ke, pe))
+    nseq = k[3].tolist()
+    print(f"zstd_dfast: {len(chunks)} chunks ({len(edge)} of <= {DFAST_CUT} B, "
+          f"{len(chunks) - len(edge)} of 64 KB) at width {data.shape[1]}: sequences "
+          f"{nseq}; kernel == plain on all six outputs, max_abs_err {dfast_err}; every "
+          f"proposal passes the host check; plain {t_dfast_plain:.2f} s (host clock)")
+    print(f"zstd_emit: {len(plans)} planned blocks (level 3 from the kernel's proposals "
+          f"and level 1 from the host matcher), up to {int(packed['nseq'].max())} "
+          f"sequences and {int(packed['lit_seg'][:, :, 1].sum(1).max())} literals: "
+          f"kernel == plain on all four outputs, max_abs_err {emit_err}; plain "
+          f"{t_emit_plain:.2f} s (host clock)")
+    # The six 64 KB chunks alone, for the kernels' times at that shape.
+    full = slice(len(edge), None)
+    full_plans = [q for q in plans3[full] if q.device]
+    full_packed = device_enc.pack_plans(full_plans)
+    return dict(dfast_err=dfast_err, emit_err=emit_err,
+                dfast_args=(data[full].contiguous(), lens[full].contiguous()),
+                emit_args=[torch.from_numpy(full_packed[name]).to(dev)
+                           for name, _, _ in zstd_encode.EMIT_INPUTS],
+                emit_packed=full_packed)
+
+
+def dfast_bound_ms(lens: torch.Tensor) -> float:
+    """Each chunk's bytes and length read once; the three (B, 16384) int32
+    sequence fields, nseq, last_lit and ok written once."""
+    B = lens.shape[0]
+    return bound_ms(int(lens.sum()) + 4 * B, B * (3 * 16384 * 4 + 9))
+
+
+def emit_bound_ms(packed: dict) -> float:
+    """The literals, the nine fields of each sequence and each row's tables
+    read once; the four Huffman streams, the sequences stream and their
+    totals written once (the zero tails included)."""
+    B = packed["nseq"].shape[0]
+    read = (int(packed["lit_seg"][:, :, 1].sum()) + 36 * int(packed["nseq"].sum())
+            + B * (4 * (8 + 512 + 1 + 384 + 1536 + 3)))
+    return bound_ms(read, B * (4 * 24576 + 16 + 98304 + 4))
+
+
+def zstd_compress_path(dev, corpus: list[bytes], host_frames: list[bytes],
+                       sustain: int = SUSTAIN) -> dict:
+    """The zstd compress path: ``ZstdBatchCodec(level=3).compress_chunks`` on
+    the corpus (its canary included), with the launch counts and route
+    counters set to 0 just before and read just after; every frame decoded
+    through the port's zstd decode kernels with its checksum; the size
+    against the host encoder's frames (``host_frames``). Then the same batch
+    again stage by stage, timed on the host clock, with equal frames; then
+    the matcher over the corpus tiled ``sustain`` times and the emission
+    over its packed plans tiled, each equal to the tiled 256-chunk
+    outputs."""
+    from aircompressor_tpu_torch.host.zstd import device_enc
+    from aircompressor_tpu_torch.ops import xxhash, zstd_decode, zstd_dfast, zstd_encode
+    from aircompressor_tpu_torch.ops.batch import ZstdBatchCodec
+
+    print("== zstd compress path at real size (generated corpus)", flush=True)
+    n = len(corpus)
+    codec = ZstdBatchCodec(level=3, device=dev)  # its canary runs on the path
+    zstd_dfast.launches = zstd_dfast.rows = zstd_encode.launches = zstd_encode.rows = 0
+    zstd_encode.host_matcher_rows = zstd_encode.host_frame_rows = xxhash.launches = 0
+    t0 = time.perf_counter()
+    frames = codec.compress_chunks(corpus)
+    t_codec = time.perf_counter() - t0
+    counts = {"zstd_dfast": zstd_dfast.launches, "zstd_emit": zstd_encode.launches,
+              "xxh64": xxhash.launches}
+    routes = {"dfast_rows": zstd_dfast.rows, "host_matcher_rows": zstd_encode.host_matcher_rows,
+              "emit_rows": zstd_encode.rows, "host_frame_rows": zstd_encode.host_frame_rows}
+    require(all(c > 0 for c in counts.values()), f"the zstd compress kernels launched: "
+            f"{counts}")
+    require(routes["dfast_rows"] == n + 2, f"every chunk and both canary chunks went "
+            f"through the matcher kernel: {routes}")
+    t0 = time.perf_counter()
+    decoded = zstd_decode.decode_batch(frames, device=dev)
+    t_decode = time.perf_counter() - t0
+    require(decoded == corpus, "every compressed frame decodes to its chunk through the "
+                               "zstd decode kernels, checksums verified")
+    size, host_size = sum(map(len, frames)), sum(map(len, host_frames))
+    require(size <= ZSTD_RATIO_LIMIT * host_size,
+            f"zstd compressed size {size} <= {ZSTD_RATIO_LIMIT} x the host encoder's "
+            f"{host_size}")
+
+    # The same batch, stage by stage.
+    zstd_encode.host_matcher_rows = zstd_encode.host_frame_rows = 0
+    times = {}
+    t0 = time.perf_counter()
+    chunks, raw, raw_lens = zstd_encode.stage(corpus, dev)
+    torch.cuda.synchronize()
+    times["stage"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pres = zstd_encode.match(chunks, raw, raw_lens)
+    times["match"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plans = zstd_encode.plan(chunks, 3, pres)
+    times["plan"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    packed = device_enc.pack_plans([q for q in plans if q.device])
+    times["pack"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    emitted = zstd_encode.emit_plans(plans, dev)
+    times["emit"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    staged = zstd_encode.assemble(chunks, plans, emitted, raw, raw_lens, 3)
+    times["assemble"] = time.perf_counter() - t0
+    require(staged == frames, "the staged run writes compress_chunks' frames")
+    text = range(4, n)  # the special chunks are runs, periods and a ramp
+    require(all(pres[i] is not None and plans[i].device for i in text),
+            "every text chunk takes the matcher kernel's proposals and the emission")
+    require(zstd_encode.host_frame_rows == sum(not q.device for q in plans),
+            "every emitted block gains; only unplanned chunks take the host encoder")
+    reasons = {}
+    for q in plans:
+        reasons[q.reason or "device"] = reasons.get(q.reason or "device", 0) + 1
+
+    # The corpus tiled on the device, through both kernels.
+    k256 = zstd_dfast.find_sequences(raw, raw_lens)
+    big_raw, big_lens = raw.repeat(sustain, 1), raw_lens.repeat(sustain)
+    t0 = time.perf_counter()
+    k_big = zstd_dfast.find_sequences(big_raw, big_lens)
+    torch.cuda.synchronize()
+    t_dfast_big = time.perf_counter() - t0
+    for name, a, b in zip(("ll", "ml", "of", "nseq", "last_lit", "ok"), k_big, k256):
+        require(torch.equal(a, b.repeat(sustain, *[1] * (b.dim() - 1))),
+                f"tiled zstd_dfast {name} equals the 256-chunk output tiled")
+    args = [torch.from_numpy(packed[name]).to(dev) for name, _, _ in zstd_encode.EMIT_INPUTS]
+    big_args = [a.repeat(sustain, *[1] * (a.dim() - 1)) for a in args]
+    e256 = zstd_encode.emit(*args)
+    t0 = time.perf_counter()
+    e_big = zstd_encode.emit(*big_args)
+    torch.cuda.synchronize()
+    t_emit_big = time.perf_counter() - t0
+    for name, a, b in zip(("lit_bytes", "lit_tot", "seq_bytes", "seq_tot"), e_big, e256):
+        require(torch.equal(a, b.repeat(sustain, *[1] * (b.dim() - 1))),
+                f"tiled zstd_emit {name} equals the 256-row output tiled")
+    for name, a in zip(("lit_bytes", "lit_tot", "seq_bytes", "seq_tot"), e256):
+        require(np.array_equal(a.cpu().numpy(), emitted[name]), f"emission {name} repeats")
+
+    print(f"ZstdBatchCodec(level=3).compress_chunks: {n} chunks, {sum(map(len, corpus))} B "
+          f"-> {size} B in {t_codec:.3f} s (host clock, canary included); the host "
+          f"encoder's frames {host_size} B, ratio {size / host_size:.6f} (limit "
+          f"{ZSTD_RATIO_LIMIT}); decoded through the zstd decode kernels in "
+          f"{t_decode:.3f} s")
+    print(f"zstd compress launches {counts}, routes {routes}; plans {reasons}")
+    print(f"zstd compress stages, {n} chunks (host clock): " + ", ".join(
+        f"{k} {v:.4f} s" for k, v in times.items())
+          + f"; total {sum(times.values()):.4f} s (pack is inside emit too)")
+    print(f"tiled x{sustain}: {big_raw.shape[0]} chunks through zstd_dfast in "
+          f"{t_dfast_big:.3f} s, {big_args[0].shape[0]} planned blocks through zstd_emit "
+          f"in {t_emit_big:.3f} s (host clock, first call)")
+    return dict(counts=counts, routes=routes, times=times, raw=raw, raw_lens=raw_lens,
+                big_raw=big_raw, big_lens=big_lens, args=args, big_args=big_args,
+                packed=packed, size=size, host_size=host_size, t_codec=t_codec)
+
+
+def zstd_encode_times(zek: dict, zc: dict) -> list[dict]:
+    """Time the DFAST and emission kernels by CUDA events on the six 64 KB
+    chunks (beside their plain versions, in turns), on the corpus and on the
+    corpus tiled, each beside its bytes bound; return their lines of the
+    kernels JSON. The emission wrapper reads two totals back to check for an
+    overflow, so its times include that copy."""
+    from aircompressor_tpu_torch.ops import zstd_dfast, zstd_encode
+
+    entries = []
+    d_small, d_mid, d_big = zek["dfast_args"], (zc["raw"], zc["raw_lens"]), (
+        zc["big_raw"], zc["big_lens"])
+    e_small, e_mid, e_big = zek["emit_args"], zc["args"], zc["big_args"]
+    big_packed = {k: np.concatenate([v] * SUSTAIN) for k, v in zc["packed"].items()
+                  if k in ("lit_seg", "nseq")}
+    for name, fn, plain, small, mid, big, bounds, line, src in (
+            ("zstd_dfast", zstd_dfast.find_sequences, zstd_dfast.find_sequences_plain,
+             d_small, d_mid, d_big, [dfast_bound_ms(a[1]) for a in (d_small, d_mid, d_big)],
+             "aircompressor_tpu/ops/zstd_dfast_pallas.py:58", "zstd_dfast"),
+            ("zstd_emit", zstd_encode.emit, zstd_encode.emit_plain, e_small, e_mid, e_big,
+             [emit_bound_ms(p) for p in (zek["emit_packed"], zc["packed"], big_packed)],
+             "aircompressor_tpu/ops/zstd_encode_jax.py:159", "zstd_emit")):
+        ms, plain_ms = paired_ms(lambda: fn(*small), lambda: plain(*small), 10, 1)
+        ms_mid, ms_big = time_ms(lambda: fn(*mid), 5), time_ms(lambda: fn(*big), 3)
+        rows = [small[0].shape[0], mid[0].shape[0], big[0].shape[0]]
+        print(f"{name}: {rows[0]} rows (of the six 64 KB chunks): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bounds[0]:.5f} ms; {rows[1]} rows: kernel "
+              f"{ms_mid:.4f} ms, bound {bounds[1]:.5f} ms; {rows[2]} rows: kernel "
+              f"{ms_big:.4f} ms, bound {bounds[2]:.5f} ms")
+        entry = {
+            "name": name, "route": "cuda", "source": f"aircompressor_tpu_torch/csrc/{src}.cu",
+            "replaces": line, "launches": zc["counts"][name],
+            "max_abs_err": zek["dfast_err" if name == "zstd_dfast" else "emit_err"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds[0], "bound_by": "bytes",
+            "library_ms": None, "batch": f"{rows[0]} rows of the six 64 KB chunks",
+            "chunks": rows[1], "chunks_ms": ms_mid, "chunks_bound_ms": bounds[1],
+            "tiled_chunks": rows[2], "tiled_ms": ms_big, "tiled_bound_ms": bounds[2]}
+        if name == "zstd_emit":
+            entry["note"] = "the JAX package's emission is XLA, not a Pallas kernel"
+        entries.append(entry)
     return entries
 
 
@@ -1192,6 +1508,8 @@ def main() -> None:
     zk = zstd_kernels_against_plain(dev)
     lk = lzo_kernel_against_plain(dev)
     dk = deflate_kernel_against_plain(dev)
+    seed_errs = xxhash_seeds_against_plain(dev)
+    zek = zstd_encode_kernels_against_plain(dev)
 
     codec = SnappyBatchCodec()  # the card by default; its canaries run here
     short = [c for c in cases if len(c) <= CHUNK]
@@ -1406,6 +1724,7 @@ def main() -> None:
     zp = zstd_decode_path(dev, corpus)
     lp = lzo_path(dev, corpus)
     dp = deflate_path(dev, corpus)
+    zc = zstd_compress_path(dev, corpus, zp["frames"])
 
     print("== times (CUDA events)", flush=True)
     comp, comp_lens = to_device_batch(
@@ -1509,6 +1828,7 @@ def main() -> None:
 
     z_entries = zstd_kernel_times(zk, zp)
     ld_entries = lzo_deflate_times(dev, lk, lp, dk, dp)
+    zc_entries = zstd_encode_times(zek, zc)
 
     kernels = [
         {"name": "snappy_decode", "route": "cuda",
@@ -1569,7 +1889,10 @@ def main() -> None:
          "tiled_chunks": big_raw.shape[0], "tiled_ms": x32_big_ms,
          "tiled_bound_ms": xxh_bound(raw_big, big_raw.shape[0])},
     ]
-    kernels += z_entries + ld_entries
+    kernels += z_entries + ld_entries + zc_entries
+    for e in kernels:  # the seeded checks hold the xxHash kernels too
+        if e["name"] in seed_errs:
+            e["max_abs_err"] = max(e["max_abs_err"], seed_errs[e["name"]])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

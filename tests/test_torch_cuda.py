@@ -21,19 +21,20 @@ from aircompressor_tpu_torch.host.xxhash import xxh32 as host_xxh32
 from aircompressor_tpu_torch.host.xxhash import xxh64 as host_xxh64
 from aircompressor_tpu_torch.data import libzstd_frames
 from aircompressor_tpu_torch.host.deflate import plan as deflate_plan
-from aircompressor_tpu_torch.host.zstd import device_prep
+from aircompressor_tpu_torch.host.zstd import device_enc, device_prep
 from aircompressor_tpu_torch.host.zstd import frame_enc as host_zstd_enc
 from aircompressor_tpu_torch.ops import (
     checksum, deflate_decode, lz4_decode, lz4_encode, lzo_decode, snappy_decode,
-    snappy_encode, xxhash, zstd_decode)
+    snappy_encode, xxhash, zstd_decode, zstd_dfast, zstd_encode)
 from aircompressor_tpu_torch.ops.batch import (
     DeflateBatchCodec, Lz4BatchCodec, LzoBatchCodec, SnappyBatchCodec, ZstdBatchCodec,
     _pack, _selfcheck_payload, deflate_raw, snappy_framed_decompress_device,
     to_device_batch)
 from chip_smoke import (
-    LZ4_EDGE_BLOCKS, LZO_EDGE_BLOCKS, LZO_EDGE_CAP, backward_cap_case, deflate_cases,
-    deflate_malformed_cases, lz4_length_edges_case, lz4_malformed_cases, lzo_cases,
-    zstd_cases, zstd_full_cases, zstd_malformed_cases)
+    LZ4_EDGE_BLOCKS, LZO_EDGE_BLOCKS, LZO_EDGE_CAP, XXH_SEED_LENGTHS, XXH_SEEDS,
+    backward_cap_case, deflate_cases, deflate_malformed_cases, dfast_cases,
+    lz4_length_edges_case, lz4_malformed_cases, lzo_cases, zstd_cases, zstd_full_cases,
+    zstd_malformed_cases)
 
 pytestmark = pytest.mark.cuda
 
@@ -370,3 +371,61 @@ def test_lzo_and_deflate_codecs_on_device(device, synthetic):
         DeflateBatchCodec(device=device).decompress_chunks(
             [deflate_raw(b"abc")] + [b for _, b in deflate_malformed_cases()])
     assert exc.value.offset == 1
+
+
+@pytest.mark.parametrize("width", [1024, 1021])
+def test_xxh_kernels_take_a_seed(device, width):
+    """Aligned rows, then unaligned; kernel == plain == host at each seed."""
+    rng = np.random.default_rng(width)
+    host = rng.integers(0, 256, (len(XXH_SEED_LENGTHS), width), dtype=np.uint8)
+    data = torch.from_numpy(host).to(device)
+    lens = torch.tensor(XXH_SEED_LENGTHS, dtype=torch.int32, device=device)
+    for bits, kernel, plain, scalar in ((64, xxhash.xxh64, xxhash.xxh64_plain, host_xxh64),
+                                        (32, xxhash.xxh32, xxhash.xxh32_plain, host_xxh32)):
+        for seed in (*XXH_SEEDS, (1 << bits) - 1):
+            got = [v & ((1 << bits) - 1) for v in kernel(data, lens, seed).tolist()]
+            want = [v & ((1 << bits) - 1) for v in plain(data, lens, seed).tolist()]
+            assert got == want == [scalar(host[i, :n], seed)
+                                   for i, n in enumerate(XXH_SEED_LENGTHS)], (bits, seed)
+
+
+def _dfast_batch(device):
+    chunks = dfast_cases() + zstd_full_cases()[:3]
+    return chunks, to_device_batch(*_pack(chunks, 65536), device)
+
+
+def test_zstd_dfast_kernel_equals_plain(device):
+    chunks, (data, lens) = _dfast_batch(device)
+    before = zstd_dfast.launches
+    got = zstd_dfast.find_sequences(data, lens)
+    assert zstd_dfast.launches == before + 1
+    for g, w in zip(got, zstd_dfast.find_sequences_plain(data, lens)):
+        assert g.device.type == "cuda"
+        assert torch.equal(g, w)
+    assert bool(got[5].all()) and int(got[3][-1]) > 100
+
+
+def test_zstd_emit_kernel_equals_plain(device):
+    """The plans of the matcher kernel's proposals and of the host matcher
+    at level 1."""
+    chunks, (data, lens) = _dfast_batch(device)
+    plans = (zstd_encode.plan(chunks, 3, zstd_encode.match(chunks, data, lens))
+             + zstd_encode.plan(chunks, 1, [None] * len(chunks)))
+    packed = device_enc.pack_plans([p for p in plans if p.device])
+    args = [torch.from_numpy(packed[name]).to(device) for name, _, _ in zstd_encode.EMIT_INPUTS]
+    before = zstd_encode.launches
+    got = zstd_encode.emit(*args)
+    assert zstd_encode.launches == before + 1
+    for g, w in zip(got, zstd_encode.emit_plain(*args)):
+        assert g.device.type == "cuda"
+        assert torch.equal(g, w)
+
+
+def test_zstd_compress_round_trip_on_device(device, synthetic):
+    raws = [c[:65536] for _, c in synthetic] + [_selfcheck_payload(s) for s in (1, 2)]
+    codec = ZstdBatchCodec(device=device)
+    before = (zstd_dfast.rows, zstd_encode.rows)
+    frames = codec.compress_chunks(raws)
+    assert (zstd_dfast.rows - before[0], zstd_encode.rows - before[1] > 2) == (
+        2 + len(raws), True)  # the canary's two chunks and the batch
+    assert codec.decompress_chunks(frames) == raws

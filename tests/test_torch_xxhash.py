@@ -17,6 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from aircompressor_tpu.ops import xxhash_jax, xxhash_pallas  # noqa: E402
 from aircompressor_tpu.xxhash import _scalar  # noqa: E402
+from aircompressor_tpu_torch.host import xxhash as host_xxhash  # noqa: E402
 from aircompressor_tpu_torch.ops import xxhash  # noqa: E402
 
 M64 = (1 << 64) - 1
@@ -112,3 +113,28 @@ def test_xxh32_rejects_bad_arguments():
     with pytest.raises(ValueError):
         xxhash.xxh32(torch.zeros((2, 8), dtype=torch.uint8),
                      torch.zeros(3, dtype=torch.int32))
+
+
+SEED_LENGTHS = [0, 3, 31, 32, 33, 1000]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 0x9E3779B1, (1 << 64) - 1])
+def test_xxh64_takes_a_seed(seed):
+    """The wrapper (the plain version, for CPU tensors) at a seed equals
+    ``xxhash_jax.xxh64`` and the host tier at that seed."""
+    data, lengths = _batch(1024, SEED_LENGTHS, 44)
+    got = _u64(xxhash.xxh64(torch.from_numpy(data), torch.from_numpy(lengths), seed))
+    want = _jax_u64(*xxhash_jax.xxh64(jnp.asarray(data), jnp.asarray(lengths),
+                                      seed=seed))
+    assert got == want
+    assert got == [host_xxhash.xxh64(data[i, :n], seed) for i, n in enumerate(lengths)]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 0x9E3779B1, (1 << 32) - 1])
+def test_xxh32_takes_a_seed(seed):
+    data, lengths = _batch(1024, SEED_LENGTHS, 45)
+    got = xxhash.xxh32(torch.from_numpy(data), torch.from_numpy(lengths), seed).tolist()
+    want = np.asarray(xxhash_jax.xxh32(jnp.asarray(data), jnp.asarray(lengths),
+                                       seed=seed)).tolist()
+    assert got == want
+    assert got == [host_xxhash.xxh32(data[i, :n], seed) for i, n in enumerate(lengths)]

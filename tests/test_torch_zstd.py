@@ -222,8 +222,8 @@ def test_zstd_batch_codec_on_the_cpu(batch):
     assert codec.decompress_chunks(batch["frames"]) == batch["raws"]
     assert zstd_decode.execute_launches == before  # the CPU runs the plain versions
     assert codec.decompress_chunks([]) == []
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        codec.compress_chunks([b"abc"])
+    with pytest.raises(ValueError, match="chunk 1 exceeds capacity 4096"):
+        ZstdBatchCodec(4096, device="cpu").compress_chunks([b"abc", bytes(4097)])
     with pytest.raises(ValueError):
         ZstdBatchCodec(65537, device="cpu")
     with pytest.raises(PortMalformed) as exc:
