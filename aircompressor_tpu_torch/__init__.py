@@ -10,8 +10,10 @@ framer, CRC32-C, the scalar XXH32 and XXH64, the zstd planner with its
 header and table readers, the zstd host encoder, and the raw-deflate
 planner in C++, built with g++ by ``_build``) is its own copy, in ``host``.
 
-Ported so far: batched Snappy and LZ4 block decode and encode, batched
-LZO1X, raw-deflate and zstd decode, XXH64, XXH32 and CRC32-C (``ops``); the
+Ported so far: batched Snappy and LZ4 block decode (with their loop
+counts) and encode, the r2 Snappy decode of the JAX package's ablation,
+batched LZO1X, raw-deflate and zstd decode, zstd compress, XXH64, XXH32,
+CRC32-C and the per-kernel profiling (``ops``); the
 user surface ``ops.batch`` (``SnappyBatchCodec`` and ``Lz4BatchCodec`` with
 ``compress_chunks`` and ``decompress_chunks``, ``LzoBatchCodec`` and
 ``DeflateBatchCodec`` with ``decompress_chunks`` on the card and

@@ -23,6 +23,11 @@
 // stores at or past out_cap are dropped, and since a match only reads bytes
 // before the one it writes, every byte below out_cap is still exact.
 //
+// With a non-null `steps`, lane 0 also writes the iterations of the
+// sequence loop for each chunk: the sequences parsed, the failing one
+// included, 0 for a chunk rejected before its first sequence. A null `steps`
+// writes nothing more.
+//
 // What bounds it on this card: the sequences of a chunk are parsed one after
 // another, each start depending on the sequence before, so one chunk is a
 // serial chain of dependent loads. The card is filled only by the chunks in
@@ -43,7 +48,8 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 lz4_decode_kernel(const uint8_t* __restrict__ comp,
                   const int32_t* __restrict__ comp_lens, int batch, int cap,
                   uint8_t* out, int32_t* __restrict__ out_lens,
-                  uint8_t* __restrict__ ok, int out_cap) {
+                  uint8_t* __restrict__ ok, int out_cap,
+                  int32_t* __restrict__ steps) {
   const int lane = threadIdx.x & 31;
   const int chunk = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (chunk >= batch) return;  // the same for every lane of the warp
@@ -78,7 +84,9 @@ lz4_decode_kernel(const uint8_t* __restrict__ comp,
   bool ended = false;
   int ip = 0;
   int op = 0;
+  int count = 0;
   while (!err && ip < clen) {
+    ++count;
     const int token = src[ip++];
     int lit = token >> 4;
     if (lit == 15) {
@@ -127,6 +135,7 @@ lz4_decode_kernel(const uint8_t* __restrict__ comp,
   if (lane == 0) {
     out_lens[chunk] = op;
     ok[chunk] = !err && ended;
+    if (steps != nullptr) steps[chunk] = count;
   }
 }
 
@@ -134,10 +143,10 @@ lz4_decode_kernel(const uint8_t* __restrict__ comp,
 
 // Launches the decode on `stream` and returns cudaGetLastError(). The caller
 // allocates every buffer: out (batch, out_cap) uint8, out_lens (batch,)
-// int32, ok (batch,) bool.
+// int32, ok (batch,) bool, and steps (batch,) int32 or null.
 extern "C" int acx_lz4_decode(const void* comp, const void* comp_lens,
                               int batch, int cap, void* out, void* out_lens,
-                              void* ok, int out_cap, void* stream) {
+                              void* ok, int out_cap, void* steps, void* stream) {
   if (batch > 0) {
     const int blocks = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
     lz4_decode_kernel<<<blocks, kWarpsPerBlock * 32, 0,
@@ -145,7 +154,7 @@ extern "C" int acx_lz4_decode(const void* comp, const void* comp_lens,
         static_cast<const uint8_t*>(comp),
         static_cast<const int32_t*>(comp_lens), batch, cap,
         static_cast<uint8_t*>(out), static_cast<int32_t*>(out_lens),
-        static_cast<uint8_t*>(ok), out_cap);
+        static_cast<uint8_t*>(ok), out_cap, static_cast<int32_t*>(steps));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,6 +21,10 @@
 // and since a copy only reads bytes before the one it writes, every byte
 // below out_cap is still exact.
 //
+// With a non-null `steps`, lane 0 also writes the iterations of the token
+// loop for each chunk: the tokens parsed, the failing one included, 0 for a
+// chunk rejected before its first token. A null `steps` writes nothing more.
+//
 // What bounds it on this card: the tokens of a chunk are parsed one after
 // another, each start depending on the token before, so one chunk is a serial
 // chain of dependent loads. The card is filled only by the number of chunks
@@ -41,7 +45,8 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 snappy_decode_kernel(const uint8_t* __restrict__ comp,
                      const int32_t* __restrict__ comp_lens, int batch, int cap,
                      uint8_t* out, int32_t* __restrict__ out_lens,
-                     uint8_t* __restrict__ ok, int out_cap) {
+                     uint8_t* __restrict__ ok, int out_cap,
+                     int32_t* __restrict__ steps) {
   const int lane = threadIdx.x & 31;
   const int chunk = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (chunk >= batch) return;  // the same for every lane of the warp
@@ -74,7 +79,9 @@ snappy_decode_kernel(const uint8_t* __restrict__ comp,
   bool err = declared > kMaxOut || vlen > clen || clen > cap;
   int ip = vlen;
   int op = 0;
+  int count = 0;
   while (!err && ip < clen) {
+    ++count;
     const int bytes = peek(ip);
     const int tag = __shfl_sync(kAllLanes, bytes, 0);
     const uint32_t b1 = __shfl_sync(kAllLanes, bytes, 1);
@@ -126,6 +133,7 @@ snappy_decode_kernel(const uint8_t* __restrict__ comp,
   if (lane == 0) {
     out_lens[chunk] = op;
     ok[chunk] = !err && static_cast<uint32_t>(op) == declared;
+    if (steps != nullptr) steps[chunk] = count;
   }
 }
 
@@ -133,10 +141,11 @@ snappy_decode_kernel(const uint8_t* __restrict__ comp,
 
 // Launches the decode on `stream` and returns cudaGetLastError(). The caller
 // allocates every buffer: out (batch, out_cap) uint8, out_lens (batch,)
-// int32, ok (batch,) bool.
+// int32, ok (batch,) bool, and steps (batch,) int32 or null.
 extern "C" int acx_snappy_decode(const void* comp, const void* comp_lens,
                                  int batch, int cap, void* out, void* out_lens,
-                                 void* ok, int out_cap, void* stream) {
+                                 void* ok, int out_cap, void* steps,
+                                 void* stream) {
   if (batch > 0) {
     const int blocks = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
     snappy_decode_kernel<<<blocks, kWarpsPerBlock * 32, 0,
@@ -144,7 +153,7 @@ extern "C" int acx_snappy_decode(const void* comp, const void* comp_lens,
         static_cast<const uint8_t*>(comp),
         static_cast<const int32_t*>(comp_lens), batch, cap,
         static_cast<uint8_t*>(out), static_cast<int32_t*>(out_lens),
-        static_cast<uint8_t*>(ok), out_cap);
+        static_cast<uint8_t*>(ok), out_cap, static_cast<int32_t*>(steps));
   }
   return static_cast<int>(cudaGetLastError());
 }

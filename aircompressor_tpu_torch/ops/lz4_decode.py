@@ -17,6 +17,13 @@ out_cap``. A malformed chunk stops where the parse failed; its ``out_lens``
 counts the bytes produced before that, the literals of the failing sequence
 included when only its match part failed.
 
+``with_steps=True`` adds a fourth result, (B,) int32: the iterations of
+the kernel's sequence loop for each chunk, that is the sequences it parsed,
+the failing one included; 0 for a chunk rejected before its first
+sequence. The JAX kernel's ``steps`` count its TPU loop bodies over grid
+steps of many chunks; that is TPU machinery, so the port counts its own
+loop instead.
+
 ``decode`` launches ``csrc/lz4_decode.cu`` for a CUDA tensor and uses
 ``decode_plain`` only for a tensor on the CPU.
 """
@@ -35,12 +42,12 @@ rows = 0
 
 
 def decode(comp: torch.Tensor, comp_lens: torch.Tensor,
-           out_cap: int = MAX_OUT):
+           out_cap: int = MAX_OUT, with_steps: bool = False):
     """Decode B LZ4 blocks of at most 64 KB each; see the module doc."""
     global launches, rows
     comp, comp_lens = check_decode_args(comp, comp_lens, out_cap)
     if comp.device.type == "cpu":
-        return decode_plain(comp, comp_lens, out_cap)
+        return decode_plain(comp, comp_lens, out_cap, with_steps)
     if comp.device.type != "cuda":
         raise ValueError(f"no LZ4 decode for device {comp.device}")
     lib = _build.load()
@@ -48,21 +55,24 @@ def decode(comp: torch.Tensor, comp_lens: torch.Tensor,
     out = torch.empty((B, out_cap), dtype=torch.uint8, device=comp.device)
     out_lens = torch.empty(B, dtype=torch.int32, device=comp.device)
     ok = torch.empty(B, dtype=torch.bool, device=comp.device)
+    steps = torch.empty(B, dtype=torch.int32, device=comp.device) if with_steps else None
     if B:
         with torch.cuda.device(comp.device):
             err = lib.acx_lz4_decode(
                 comp.data_ptr(), comp_lens.data_ptr(), B, cap, out.data_ptr(),
                 out_lens.data_ptr(), ok.data_ptr(), out_cap,
+                steps.data_ptr() if with_steps else None,
                 torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"lz4 decode kernel launch failed: CUDA error {err}")
         launches += 1
         rows += B
-    return out, out_lens, ok & (out_lens <= out_cap)
+    result = (out, out_lens, ok & (out_lens <= out_cap))
+    return result + (steps,) if with_steps else result
 
 
 def decode_plain(comp: torch.Tensor, comp_lens: torch.Tensor,
-                 out_cap: int = MAX_OUT):
+                 out_cap: int = MAX_OUT, with_steps: bool = False):
     """Plain PyTorch decode with the kernel's results, for tests and checks.
 
     The geometry of a sequence that would start at every position (the ends
@@ -70,6 +80,8 @@ def decode_plain(comp: torch.Tensor, comp_lens: torch.Tensor,
     chain from position 0 by doubling jump tables, output offsets by cumsum,
     the first malformed sequence over all of them, the covering sequence of
     each output byte by searchsorted, and copy chains by pointer doubling.
+    The step count is the sequences of the chain up to the first malformed
+    one, included.
     """
     comp, comp_lens = check_decode_args(comp, comp_lens, out_cap)
     B, cap = comp.shape
@@ -151,4 +163,8 @@ def decode_plain(comp: torch.Tensor, comp_lens: torch.Tensor,
     for _ in range(out_cap.bit_length()):
         ptr = ptr.gather(1, ptr)
     out = torch.where(produced, at(raw, lit_src.gather(1, ptr)), 0).to(torch.uint8)
-    return out, op.to(torch.int32), ok
+    if not with_steps:
+        return out, op.to(torch.int32), ok
+    last = torch.where(any_bad, first[:, 0], cap)
+    steps = (is_seq & (pos <= last[:, None])).sum(1)
+    return out, op.to(torch.int32), ok, steps.to(torch.int32)

@@ -8,11 +8,19 @@ output length, (B,) int32 and (B,) bool. A malformed chunk stops at its
 first bad token; its ``out_lens`` is the count of bytes produced before it
 and its ``ok`` is False. ``ok`` also requires ``out_lens <= out_cap``.
 
+``with_steps=True`` adds a fourth result, (B,) int32: the iterations of
+the kernel's token loop for each chunk, that is the tokens it parsed, the
+failing one included; 0 for a chunk rejected before its first token. The
+JAX kernel's ``steps`` count its TPU loop bodies of 8 tokens over 64-chunk
+grid steps; that is TPU machinery, so the port counts its own loop instead.
+
 ``decode`` launches ``csrc/snappy_decode.cu`` for a CUDA tensor and uses
 ``decode_plain`` only for a tensor on the CPU.
 """
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import torch
 
@@ -26,12 +34,12 @@ rows = 0
 
 
 def decode(comp: torch.Tensor, comp_lens: torch.Tensor,
-           out_cap: int = MAX_OUT):
+           out_cap: int = MAX_OUT, with_steps: bool = False):
     """Decode B Snappy blocks of at most 64 KB each; see the module doc."""
     global launches, rows
     comp, comp_lens = check_decode_args(comp, comp_lens, out_cap)
     if comp.device.type == "cpu":
-        return decode_plain(comp, comp_lens, out_cap)
+        return decode_plain(comp, comp_lens, out_cap, with_steps)
     if comp.device.type != "cuda":
         raise ValueError(f"no Snappy decode for device {comp.device}")
     lib = _build.load()
@@ -39,35 +47,40 @@ def decode(comp: torch.Tensor, comp_lens: torch.Tensor,
     out = torch.empty((B, out_cap), dtype=torch.uint8, device=comp.device)
     out_lens = torch.empty(B, dtype=torch.int32, device=comp.device)
     ok = torch.empty(B, dtype=torch.bool, device=comp.device)
+    steps = torch.empty(B, dtype=torch.int32, device=comp.device) if with_steps else None
     if B:
         with torch.cuda.device(comp.device):
             err = lib.acx_snappy_decode(
                 comp.data_ptr(), comp_lens.data_ptr(), B, cap, out.data_ptr(),
                 out_lens.data_ptr(), ok.data_ptr(), out_cap,
+                steps.data_ptr() if with_steps else None,
                 torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(
                 f"snappy decode kernel launch failed: CUDA error {err}")
         launches += 1
         rows += B
-    return out, out_lens, ok & (out_lens <= out_cap)
+    result = (out, out_lens, ok & (out_lens <= out_cap))
+    return result + (steps,) if with_steps else result
 
 
-def decode_plain(comp: torch.Tensor, comp_lens: torch.Tensor,
-                 out_cap: int = MAX_OUT):
-    """Plain PyTorch decode with the kernel's results, for tests and checks.
+def token_table(comp: torch.Tensor, comp_lens: torch.Tensor) -> SimpleNamespace:
+    """The token chain of every chunk, as the kernel walks it, in (B, cap + 1)
+    tables over byte positions (column ``cap`` is a sink past the row).
 
-    A port of the vectorised ``aircompressor_tpu.ops.snappy_jax.decode``:
-    token geometry at every byte, the token chain by doubling jump tables,
-    output offsets by cumsum, the covering token of each output byte by
-    searchsorted, and copy chains resolved by pointer doubling.
+    ``is_tok`` marks the positions where a token of the chain starts;
+    ``is_lit``, ``tok`` (header bytes), ``length``, ``dist`` and ``op_at``
+    (output offset) describe a token that would start there; ``bad`` marks
+    a token of the chain that fails its checks, ``first_bad`` (B, 1) the
+    first of them (``any_bad`` says whether there is one). ``op`` is each
+    chunk's output length, ``err0`` a rejection before the first token,
+    ``declared`` the varint length truncated to 32 bits, ``vlen`` its size,
+    ``raw`` the bytes as int64 with zeros past each length.
     """
-    comp, comp_lens = check_decode_args(comp, comp_lens, out_cap)
     B, cap = comp.shape
     dev = comp.device
     i64 = torch.int64
     clen = comp_lens.to(i64)[:, None]
-    # Column `cap` of every per-position table is a sink past the row.
     pos = torch.arange(cap + 1, device=dev)[None, :]
     raw = torch.zeros((B, cap + 5), dtype=i64, device=dev)
     raw[:, :cap] = comp
@@ -128,17 +141,47 @@ def decode_plain(comp: torch.Tensor, comp_lens: torch.Tensor,
     any_bad = bad.any(1)
     first_bad = bad.to(torch.uint8).argmax(1, keepdim=True)
     op = torch.where(any_bad, op_at.gather(1, first_bad)[:, 0], incl[:, -1])
-    ok = ~err0 & ~any_bad & (op == declared[:, 0]) & (op <= out_cap)
+    return SimpleNamespace(
+        raw=raw, pos=pos, declared=declared[:, 0], vlen=vlen, err0=err0,
+        is_tok=is_tok, is_lit=is_lit, tok=tok, length=length, dist=dist,
+        op_at=op_at, incl=incl, bad=bad, any_bad=any_bad, first_bad=first_bad,
+        op=op)
 
-    # Output bytes: covering token by searchsorted, copies by pointer doubling.
-    j = torch.arange(out_cap, device=dev).expand(B, out_cap).contiguous()
-    p = torch.searchsorted(incl, j, right=True).clamp_(max=cap)
-    produced = j < op.clamp(max=out_cap)[:, None]
-    lit_src = p + tok.gather(1, p) + j - op_at.gather(1, p)
-    resolved = is_lit.gather(1, p) | ~produced
-    ptr = torch.where(resolved, j, j - dist.gather(1, p))
+
+def results(t: SimpleNamespace, out_cap: int):
+    """``(out, out_lens, ok)`` of a token table: the covering token of each
+    output byte by searchsorted, copy chains resolved by pointer doubling,
+    zeros at and past each output length."""
+    B, cap = t.raw.shape[0], t.pos.shape[1] - 1
+    j = torch.arange(out_cap, device=t.raw.device).expand(B, out_cap).contiguous()
+    p = torch.searchsorted(t.incl, j, right=True).clamp_(max=cap)
+    produced = j < t.op.clamp(max=out_cap)[:, None]
+    lit_src = p + t.tok.gather(1, p) + j - t.op_at.gather(1, p)
+    resolved = t.is_lit.gather(1, p) | ~produced
+    ptr = torch.where(resolved, j, j - t.dist.gather(1, p))
     for _ in range(out_cap.bit_length()):
         ptr = ptr.gather(1, ptr)
     src = lit_src.gather(1, ptr).clamp(0, cap + 4)
-    out = torch.where(produced, raw.gather(1, src), 0).to(torch.uint8)
-    return out, op.to(torch.int32), ok
+    out = torch.where(produced, t.raw.gather(1, src), 0).to(torch.uint8)
+    ok = ~t.err0 & ~t.any_bad & (t.op == t.declared) & (t.op <= out_cap)
+    return out, t.op.to(torch.int32), ok
+
+
+def decode_plain(comp: torch.Tensor, comp_lens: torch.Tensor,
+                 out_cap: int = MAX_OUT, with_steps: bool = False):
+    """Plain PyTorch decode with the kernel's results, for tests and checks.
+
+    A port of the vectorised ``aircompressor_tpu.ops.snappy_jax.decode``:
+    token geometry at every byte, the token chain by doubling jump tables,
+    output offsets by cumsum, the covering token of each output byte by
+    searchsorted, and copy chains resolved by pointer doubling. The step
+    count is the tokens of the chain up to the first bad one, included.
+    """
+    comp, comp_lens = check_decode_args(comp, comp_lens, out_cap)
+    t = token_table(comp, comp_lens)
+    result = results(t, out_cap)
+    if not with_steps:
+        return result
+    last = torch.where(t.any_bad, t.first_bad[:, 0], t.pos.shape[1] - 1)
+    steps = (t.is_tok & (t.pos <= last[:, None])).sum(1)
+    return result + (steps.to(torch.int32),)

@@ -16,6 +16,9 @@ read just after:
   encode kernel;
 - decode: ``decompress_chunks`` on the corpus's blocks, and the tiled
   blocks through the decode and xxh64 kernels (``entry.decode_and_hash``);
+- r2 decode: the corpus's 256 blocks, then the 4096 tiled blocks, through
+  the r2 Snappy decode kernel (``snappy_decode_r2.decode``) with its step
+  counts, every byte held to the corpus and to the decode kernel's output;
 - framed: an x-snappy-framed stream of the corpus through
   ``snappy_framed_decompress_device``;
 - LZ4: ``Lz4BatchCodec.compress_chunks`` and ``decompress_chunks`` on the
@@ -46,9 +49,14 @@ frames, and on a batch of 64 KB corpus chunks through the host encoder at
 level 3, as the zstd path gives them; the LZO and deflate kernels likewise,
 on synthetic, edge, malformed and 64 KB chunks; the DFAST matcher kernel on
 its edge cases and six 64 KB chunks, and the emission kernel on their
-plans; the xxHash kernels at nonzero seeds. Every byte and hash is
-checked against the originals and the port's
-host reference codecs. It prints the card's name and power limit, kernel and
+plans; the xxHash kernels at nonzero seeds; the r2 Snappy decode kernel on
+45 rows in two groups of 32 (synthetic, malformed and 64 KB corpus blocks)
+at out_cap 65536 and 4096, steps included, and each row alone against its
+own count; the Snappy and LZ4 decode kernels with their step counts. Every
+byte and hash is checked against the originals and the port's host
+reference codecs. After the times it runs ``profiling.kernel_rows`` and a
+``profiling.trace`` of both Snappy decode kernels, whose trace file must
+name both. It prints the card's name and power limit, kernel and
 plain times, then one JSON line of per-kernel results, and last ``{"ok":
 true, "device": {...}}``. Any failed check raises, so the exit code is not
 0 and that last line is not printed. With no CUDA device it fails at once;
@@ -58,7 +66,6 @@ there is no CPU path. It imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import json
-import subprocess
 import time
 
 import numpy as np
@@ -111,6 +118,18 @@ def malformed_cases(compress) -> list[bytes]:
     blob = compress(text)
     return [blob[: len(blob) // 2], blob[:1] + b"\x01\x00" + blob[3:],
             b"\xfe\xff\xff\xff\x0f" + blob[5:]]
+
+
+# Malformed Snappy blocks of the r2 comparisons: a truncated literal, dist 0,
+# dist > op, a 4-byte offset with a high byte, a declared length with bit 31
+# set (the r2 kernel's first token fails) and one of 65537 (rejected at
+# once), a varint longer than the chunk, and last a 4-byte literal length of
+# 0xFFFFFFFF, which the port rejects (ROADMAP F10).
+R2_MALFORMED = [
+    b"\x0a\x24abcd", b"\x08\x0cabcd\x01\x00", b"\x08\x0cabcd\x01\x09",
+    b"\x08\x0cabcd\x0f\x04\x00\x00\x01", b"\xfe\xff\xff\xff\x0f\x0cabcd",
+    b"\x81\x80\x04\x0cabcd", b"\x80\x80\x80", b"\x05\xfc\xff\xff\xff\xff\x04abc"]
+R2_CORPUS_ROWS = [0, 1, 2, 3] + list(range(4, N_CHUNKS, 13))[:20]  # 24 corpus blocks
 
 
 def generated_corpus() -> list[bytes]:
@@ -1305,13 +1324,58 @@ def lzo_deflate_times(dev, lk: dict, lp: dict, dk: dict, dp: dict) -> list[dict]
     return entries
 
 
+def snappy_r2_against_plain(dev, corpus: list[bytes]) -> dict:
+    """Hold the r2 kernel (kernel #12) to its plain version on all four
+    outputs, steps included, at out_cap 65536 and 4096, on 45 rows in two
+    groups of 32: the synthetic cases, the malformed blocks, the r2
+    malformed rows and 24 corpus blocks of 64 KB. Bytes, lengths and ok also
+    equal kernel #1's; each row alone (one launch a row) gives its own count.
+    Returns the max_abs_err."""
+    from aircompressor_tpu_torch.host import snappy as host_snappy
+    from aircompressor_tpu_torch.ops import snappy_decode, snappy_decode_r2
+    from aircompressor_tpu_torch.ops.batch import _pack, _round_up, to_device_batch
+
+    compress = host_snappy.compress
+    blobs = ([compress(c) for _, c in synthetic_cases()] + malformed_cases(compress)
+             + R2_MALFORMED + [compress(corpus[i]) for i in R2_CORPUS_ROWS])
+    require(len(blobs) == 45, "45 rows for the r2 comparison")
+    comp, comp_lens = to_device_batch(
+        *_pack(blobs, _round_up(max(map(len, blobs)), 16)), dev)
+    err = 0
+    for out_cap in (CHUNK, 4096):
+        k = snappy_decode_r2.decode(comp, comp_lens, out_cap=out_cap, with_steps=True)
+        p = snappy_decode_r2.decode_plain(comp, comp_lens, out_cap=out_cap, with_steps=True)
+        k1 = snappy_decode.decode(comp, comp_lens, out_cap=out_cap)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("out", "out_lens", "ok", "steps"), k, p):
+            require(torch.equal(a, b), f"r2 decode {name} equal plain at out_cap {out_cap}")
+        for name, a, b in zip(("out", "out_lens", "ok"), k, k1):
+            require(torch.equal(a, b), f"r2 decode {name} equal kernel #1's at {out_cap}")
+        err = max(err, int((k[0].int() - p[0].int()).abs().max()))
+        steps = k[3].tolist()
+        require(len(set(steps[:32])) == 1 and len(set(steps[32:])) == 1
+                and steps[0] != steps[32], f"two groups with different maxima: {steps}")
+        require(not any(k[2][13:21].tolist()), "every r2 malformed row fails")
+    table = snappy_decode.token_table(comp, comp_lens)
+    own = snappy_decode_r2.chunk_steps(table, comp_lens).tolist()
+    alone = [int(snappy_decode_r2.decode(comp[i:i + 1], comp_lens[i:i + 1],
+                                         with_steps=True)[3][0]) for i in range(len(blobs))]
+    require(alone == own, "each row alone gives its own count")
+    print(f"snappy r2 decode: {len(blobs)} chunks ({len(blobs) - 32} in the second "
+          f"group) at out_cap {CHUNK} and 4096, kernel == plain on out, out_lens, ok "
+          f"and steps (group maxima {steps[0]} and {steps[32]}), == kernel #1 on out, "
+          f"out_lens and ok, max_abs_err {err}; each of the {len(blobs)} rows alone "
+          f"== its own count (largest {max(own)})")
+    return err
+
+
 def main() -> None:
     print("== device", flush=True)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this check runs only on a GPU")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    from aircompressor_tpu_torch.ops import profiling
+
+    card = profiling.card()
     print(card)
     dev = torch.device("cuda:0")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1326,7 +1390,8 @@ def main() -> None:
     from aircompressor_tpu_torch.host.xxhash import xxh32 as host_xxh32
     from aircompressor_tpu_torch.host.xxhash import xxh64 as host_xxh64
     from aircompressor_tpu_torch.ops import (
-        checksum, lz4_decode, lz4_encode, snappy_decode, snappy_encode, xxhash)
+        checksum, lz4_decode, lz4_encode, snappy_decode, snappy_decode_r2,
+        snappy_encode, xxhash)
     from aircompressor_tpu_torch.ops.batch import (
         Lz4BatchCodec, SnappyBatchCodec, _pack, _round_up, _selfcheck_payload,
         snappy_framed_decompress_device, to_device_batch)
@@ -1362,8 +1427,21 @@ def main() -> None:
         if want_ok[i]:
             require(k_out[i, :len(c)].cpu().numpy().tobytes() == c,
                     f"decode case {i} equals its original")
+    blobs_steps = blobs + R2_MALFORMED
+    st_comp, st_lens = to_device_batch(
+        *_pack(blobs_steps, _round_up(max(map(len, blobs_steps)), 16)), dev)
+    k_st = snappy_decode.decode(st_comp, st_lens, with_steps=True)
+    p_st = snappy_decode.decode_plain(st_comp, st_lens, with_steps=True)
+    torch.cuda.synchronize()
+    for name, k, p in zip(("out", "out_lens", "ok", "steps"), k_st, p_st):
+        require(torch.equal(k, p), f"decode with_steps {name} equal plain")
+    for name, k, p in zip(("out", "out_lens", "ok"), k_st[:3],
+                          snappy_decode.decode(st_comp, st_lens)):
+        require(torch.equal(k, p), f"decode {name} the same with and without steps")
     print(f"snappy decode: {len(blobs)} chunks, {want_ok.count(False)} "
-          f"malformed, kernel == plain, max_abs_err {decode_err}")
+          f"malformed, kernel == plain, max_abs_err {decode_err}; with_steps on "
+          f"{len(blobs_steps)} chunks == plain (out, out_lens, ok, steps; largest "
+          f"{int(k_st[3].max())} tokens)")
 
     grid = list(range(36)) + [47, 48, 63, 64, 65, 100, 255, 256, 257, CHUNK]
     rng = np.random.default_rng(42)
@@ -1473,6 +1551,12 @@ def main() -> None:
         torch.cuda.synchronize()
         for name, k, p in zip(("out", "out_lens", "ok"), k_d, p_d):
             require(torch.equal(k, p), f"lz4 decode {name} equal plain at out_cap {out_cap}")
+        k_st = lz4_decode.decode(lz_comp, lz_comp_lens, out_cap=out_cap, with_steps=True)
+        p_st = lz4_decode.decode_plain(lz_comp, lz_comp_lens, out_cap=out_cap, with_steps=True)
+        for name, k, p in zip(("out", "out_lens", "ok", "steps"), k_st, p_st):
+            require(torch.equal(k, p), f"lz4 decode with_steps {name} equal plain at {out_cap}")
+        require(all(torch.equal(k, p) for k, p in zip(k_st[:3], k_d)),
+                f"lz4 decode the same with and without steps at {out_cap}")
         lz4_decode_err = max(lz4_decode_err, int((k_d[0].int() - p_d[0].int()).abs().max()))
         got_ok = k_d[2].tolist()
         require(got_ok == [w is not None and len(w) <= out_cap for w in want_lz4],
@@ -1488,7 +1572,8 @@ def main() -> None:
                 f"blocks: {edge}")
     print(f"lz4 decode: {len(lz4_blobs_in)} chunks ({want_lz4.count(None)} "
           f"malformed) at out_cap {CHUNK} and 4096, kernel == plain, "
-          f"max_abs_err {lz4_decode_err}; F6 blocks as the Pallas kernel")
+          f"max_abs_err {lz4_decode_err}; F6 blocks as the Pallas kernel; with_steps "
+          f"== plain (largest {int(k_st[3].max())} sequences)")
 
     xxh32_err = 0
     grid32 = list(range(101)) + [CHUNK - 1, CHUNK]
@@ -1510,6 +1595,7 @@ def main() -> None:
     dk = deflate_kernel_against_plain(dev)
     seed_errs = xxhash_seeds_against_plain(dev)
     zek = zstd_encode_kernels_against_plain(dev)
+    r2_err = snappy_r2_against_plain(dev, corpus)
 
     codec = SnappyBatchCodec()  # the card by default; its canaries run here
     short = [c for c in cases if len(c) <= CHUNK]
@@ -1613,6 +1699,39 @@ def main() -> None:
           f"and hashed in {t_big:.3f} s (host clock, first call)")
     print(f"device_fraction {device_fraction} ({rows} of {n_in} chunks through the "
           f"decode kernel, {n_in - rows} on the host); launches {counts}")
+
+    print("== r2 decode path at real size (kernel #12 on the encoded corpus)", flush=True)
+    r2_comp, r2_comp_lens = to_device_batch(
+        *_pack(blobs, _round_up(max(map(len, blobs)), 16)), dev)
+    snappy_decode_r2.launches = snappy_decode_r2.rows = 0
+    t0 = time.perf_counter()
+    r2_small = snappy_decode_r2.decode(r2_comp, r2_comp_lens, with_steps=True)
+    r2_big = snappy_decode_r2.decode(big_comp, big_comp_lens, with_steps=True)
+    torch.cuda.synchronize()
+    t_r2 = time.perf_counter() - t0
+    r2_launches, r2_rows = snappy_decode_r2.launches, snappy_decode_r2.rows
+
+    n_r2 = N_CHUNKS + big_comp.shape[0]
+    require(r2_launches > 0 and r2_rows == n_r2,
+            f"every chunk went through the r2 kernel: {r2_launches} launches, "
+            f"{r2_rows}/{n_r2} chunks")
+    require(bool(r2_small[2].all()) and bool(r2_big[2].all()),
+            "every chunk decodes ok through the r2 kernel")
+    require(r2_small[0].cpu().numpy().tobytes() ==
+            b"".join(c.ljust(CHUNK, b"\0") for c in corpus),
+            "the r2 kernel's 256 chunks equal the corpus")
+    require(torch.equal(r2_small[0], res["out"][:N_CHUNKS])
+            and torch.equal(r2_small[1], res["out_lens"][:N_CHUNKS]),
+            "the r2 kernel's 256 chunks equal kernel #1's")
+    require(torch.equal(r2_big[0], res["out"]) and torch.equal(r2_big[1], res["out_lens"]),
+            "the r2 kernel's 4096 chunks equal kernel #1's")
+    require(torch.equal(r2_big[3], r2_small[3].repeat(SUSTAIN)),
+            "the 4096-chunk steps equal the 256-chunk steps tiled")
+    r2_steps = r2_small[3].view(-1, 32)[:, 0].tolist()
+    print(f"r2 decode: {N_CHUNKS} chunks, then {big_comp.shape[0]} tiled, in {t_r2:.3f} s "
+          f"(host clock, first calls); launches {r2_launches}, {r2_rows} of {n_r2} "
+          f"chunks through the r2 kernel; every byte == the corpus and kernel #1's; "
+          f"steps of the {len(r2_steps)} groups {r2_steps}")
 
     print("== framed path (x-snappy-framed stream of the corpus)", flush=True)
     noise = np.random.default_rng(7).integers(0, 256, CHUNK, dtype=np.uint8).tobytes()
@@ -1741,6 +1860,10 @@ def main() -> None:
         lambda: snappy_encode.encode_plain(*full_in), 20, 1)
     big_out, big_out_lens = res["out"], res["out_lens"]
     dec_big_ms = time_ms(lambda: snappy_decode.decode(big_comp, big_comp_lens), 5)
+    r2_ms, r2_plain_ms = paired_ms(
+        lambda: snappy_decode_r2.decode(comp, comp_lens),
+        lambda: snappy_decode_r2.decode_plain(comp, comp_lens), 20, 3)
+    r2_big_ms = time_ms(lambda: snappy_decode_r2.decode(big_comp, big_comp_lens), 5)
     xxh_big_ms = time_ms(lambda: xxhash.xxh64(big_out, big_out_lens), 10)
     enc256_ms = time_ms(lambda: snappy_encode.encode(raw, raw_lens), 5)
     enc_big_ms = time_ms(lambda: snappy_encode.encode(big_raw, big_raw_lens), 3)
@@ -1777,8 +1900,7 @@ def main() -> None:
     def lz4_enc_bound(in_bytes, b):
         return enc_bound(in_bytes, b, lz4_encode.OUT_CAP)
 
-    def dec_bound(comp_bytes, b):
-        return bound_ms(comp_bytes + 4 * b, b * CHUNK + 5 * b)
+    dec_bound = profiling.decode_bound_ms
 
     def xxh_bound(in_bytes, b):
         return bound_ms(in_bytes + 4 * b, 8 * b)
@@ -1793,6 +1915,12 @@ def main() -> None:
     print(f"snappy decode, {N_CHUNKS} chunks ({raw256} B out): kernel {dec_ms:.4f} ms "
           f"({gbps(raw256, dec_ms):.3f} GB/s), plain {dec_plain_ms:.4f} ms "
           f"({gbps(raw256, dec_plain_ms):.3f} GB/s)")
+    print(f"snappy r2 decode, {N_CHUNKS} chunks: kernel {r2_ms:.4f} ms "
+          f"({gbps(raw256, r2_ms):.3f} GB/s), plain {r2_plain_ms:.4f} ms, bound "
+          f"{dec_bound(int(comp_lens.sum()), N_CHUNKS):.5f} ms")
+    print(f"snappy r2 decode, {big_comp.shape[0]} chunks: kernel {r2_big_ms:.4f} ms "
+          f"({gbps(decoded_bytes, r2_big_ms):.3f} GB/s decoded), bound "
+          f"{dec_bound(comp_big_bytes, big_comp.shape[0]):.5f} ms")
     print(f"xxh64, {N_CHUNKS} chunks: kernel {xxh_ms:.4f} ms "
           f"({gbps(raw256, xxh_ms):.3f} GB/s), plain {xxh_plain_ms:.4f} ms "
           f"({gbps(raw256, xxh_plain_ms):.3f} GB/s)")
@@ -1826,6 +1954,23 @@ def main() -> None:
     print(f"lz4 encode + decode + xxh32, {big_raw.shape[0]} chunks: "
           f"{gbps(raw_big, lze_big_ms + lzd_big_ms + x32_big_ms):.3f} GB/s")
 
+    print("== profiling: kernel_rows and a trace of both Snappy decode kernels", flush=True)
+    prof_rows = profiling.kernel_rows()
+    print(json.dumps({"kernel_rows": prof_rows}))
+    require([r["kernel"] for r in prof_rows] == ["snappy_decode", "lz4_decode", "xxh64"]
+            and all(r["GBps"] > 0 for r in prof_rows)
+            and all(r["loop_iterations"] > 0 for r in prof_rows[:2]),
+            "kernel_rows gives the three kernels' rows")
+    with profiling.trace(str(_build.BUILD_DIR.parent / "profile")) as trace_path:
+        snappy_decode_r2.decode(comp, comp_lens)
+        snappy_decode.decode(comp, comp_lens)
+    with open(trace_path) as f:
+        trace_text = f.read()
+    for symbol in ("snappy_decode_r2_kernel", "snappy_decode_kernel"):
+        require(symbol in trace_text, f"the trace names {symbol}")
+    print(f"trace {trace_path}: {len(trace_text)} B, names snappy_decode_r2_kernel "
+          f"and snappy_decode_kernel")
+
     z_entries = zstd_kernel_times(zk, zp)
     ld_entries = lzo_deflate_times(dev, lk, lp, dk, dp)
     zc_entries = zstd_encode_times(zek, zc)
@@ -1839,6 +1984,15 @@ def main() -> None:
          "bound_ms": dec_bound(int(comp_lens.sum()), N_CHUNKS), "bound_by": "bytes",
          "library_ms": None, "batch": f"{N_CHUNKS} chunks",
          "tiled_chunks": big_comp.shape[0], "tiled_ms": dec_big_ms,
+         "tiled_bound_ms": dec_bound(comp_big_bytes, big_comp.shape[0])},
+        {"name": "snappy_decode_r2", "route": "cuda",
+         "source": "aircompressor_tpu_torch/csrc/snappy_decode_r2.cu",
+         "replaces": "aircompressor_tpu/ops/snappy_pallas8.py:60",
+         "launches": r2_launches, "max_abs_err": r2_err,
+         "ms": r2_ms, "plain_ms": r2_plain_ms,
+         "bound_ms": dec_bound(int(comp_lens.sum()), N_CHUNKS), "bound_by": "bytes",
+         "library_ms": None, "batch": f"{N_CHUNKS} chunks",
+         "tiled_chunks": big_comp.shape[0], "tiled_ms": r2_big_ms,
          "tiled_bound_ms": dec_bound(comp_big_bytes, big_comp.shape[0])},
         {"name": "xxh64", "route": "cuda",
          "source": "aircompressor_tpu_torch/csrc/xxh64.cu",
@@ -1890,6 +2044,7 @@ def main() -> None:
          "tiled_bound_ms": xxh_bound(raw_big, big_raw.shape[0])},
     ]
     kernels += z_entries + ld_entries + zc_entries
+    require(len(kernels) == 14, f"14 kernels in the line, got {len(kernels)}")
     for e in kernels:  # the seeded checks hold the xxHash kernels too
         if e["name"] in seed_errs:
             e["max_abs_err"] = max(e["max_abs_err"], seed_errs[e["name"]])

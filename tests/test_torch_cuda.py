@@ -24,14 +24,16 @@ from aircompressor_tpu_torch.host.deflate import plan as deflate_plan
 from aircompressor_tpu_torch.host.zstd import device_enc, device_prep
 from aircompressor_tpu_torch.host.zstd import frame_enc as host_zstd_enc
 from aircompressor_tpu_torch.ops import (
-    checksum, deflate_decode, lz4_decode, lz4_encode, lzo_decode, snappy_decode,
-    snappy_encode, xxhash, zstd_decode, zstd_dfast, zstd_encode)
+    checksum, deflate_decode, lz4_decode, lz4_encode, lzo_decode, profiling,
+    snappy_decode, snappy_decode_r2, snappy_encode, xxhash, zstd_decode, zstd_dfast,
+    zstd_encode)
 from aircompressor_tpu_torch.ops.batch import (
     DeflateBatchCodec, Lz4BatchCodec, LzoBatchCodec, SnappyBatchCodec, ZstdBatchCodec,
     _pack, _selfcheck_payload, deflate_raw, snappy_framed_decompress_device,
     to_device_batch)
 from chip_smoke import (
-    LZ4_EDGE_BLOCKS, LZO_EDGE_BLOCKS, LZO_EDGE_CAP, XXH_SEED_LENGTHS, XXH_SEEDS,
+    LZ4_EDGE_BLOCKS, LZO_EDGE_BLOCKS, LZO_EDGE_CAP, R2_MALFORMED, XXH_SEED_LENGTHS,
+    XXH_SEEDS,
     backward_cap_case, deflate_cases, deflate_malformed_cases, dfast_cases,
     lz4_length_edges_case, lz4_malformed_cases, lzo_cases, zstd_cases, zstd_full_cases,
     zstd_malformed_cases)
@@ -429,3 +431,64 @@ def test_zstd_compress_round_trip_on_device(device, synthetic):
     assert (zstd_dfast.rows - before[0], zstd_encode.rows - before[1] > 2) == (
         2 + len(raws), True)  # the canary's two chunks and the batch
     assert codec.decompress_chunks(frames) == raws
+
+
+def _r2_batch(synthetic, device):
+    """45 rows, two groups of the r2 kernel: the decode cases, malformed
+    rows and 64 KB text blocks."""
+    _, blobs = _blobs(synthetic)
+    blobs = blobs + R2_MALFORMED
+    blobs += [host_snappy.compress(_selfcheck_payload(s)) for s in range(3, 48 - len(blobs))]
+    return to_device_batch(*_pack(blobs, max(map(len, blobs))), device)
+
+
+@pytest.mark.parametrize("out_cap", [65536, 4096])
+def test_snappy_r2_kernel_equals_plain(device, synthetic, out_cap):
+    comp, lens = _r2_batch(synthetic, device)
+    assert comp.shape[0] == 45
+    before = snappy_decode_r2.launches
+    got = snappy_decode_r2.decode(comp, lens, out_cap=out_cap, with_steps=True)
+    want = snappy_decode_r2.decode_plain(comp, lens, out_cap=out_cap, with_steps=True)
+    assert snappy_decode_r2.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert torch.equal(g, w)
+    for g, w in zip(got, snappy_decode.decode(comp, lens, out_cap=out_cap)):
+        assert torch.equal(g, w)
+    assert len(set(got[3].tolist())) == 2  # two groups, different maxima
+
+
+def test_snappy_r2_kernel_counts_each_chunk(device, synthetic):
+    """One chunk a launch: the group maximum is that chunk's own count."""
+    comp, lens = _r2_batch(synthetic, device)
+    want = snappy_decode_r2.chunk_steps(snappy_decode.token_table(comp, lens), lens)
+    got = [int(snappy_decode_r2.decode(comp[i:i + 1], lens[i:i + 1], with_steps=True)[3][0])
+           for i in range(comp.shape[0])]
+    assert got == want.tolist()
+
+
+@pytest.mark.parametrize("codec", ["snappy", "lz4"])
+def test_decode_kernels_with_steps_equal_plain(device, synthetic, codec):
+    if codec == "snappy":
+        mod, (_, blobs) = snappy_decode, _blobs(synthetic)
+        blobs = blobs + R2_MALFORMED
+    else:
+        mod = lz4_decode
+        blobs = ([host_lz4.compress(r) for r in _lz4_raws(synthetic)]
+                 + lz4_malformed_cases(host_lz4.compress) + [b for b, _, _ in LZ4_EDGE_BLOCKS])
+    comp, lens = to_device_batch(*_pack(blobs, max(map(len, blobs)) + 3), device)
+    got = mod.decode(comp, lens, with_steps=True)
+    for g, w in zip(got, mod.decode_plain(comp, lens, with_steps=True)):
+        assert torch.equal(g, w)
+    for g, w in zip(got, mod.decode(comp, lens)):
+        assert torch.equal(g, w)
+    assert int(got[3].max()) > 0
+
+
+def test_kernel_rows_on_the_card(device):
+    rows = profiling.kernel_rows(batch=32, trials=1)
+    assert [r["kernel"] for r in rows] == ["snappy_decode", "lz4_decode", "xxh64"]
+    for r in rows:
+        assert r["GBps"] > 0 and r["bound_ms"] > 0 and r["card"]
+    for r in rows[:2]:
+        assert r["chunks"] == 32 and r["loop_iterations"] >= r["longest_chain"] > 0

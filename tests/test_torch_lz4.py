@@ -153,3 +153,72 @@ def test_decompress_chunks_flags_chunk_over_max_chunk():
     assert exc.value.offset == 0
     with pytest.raises(ValueError):
         Lz4BatchCodec(65537, device="cpu")
+
+
+def _sequence_walk(blob: bytes) -> int:
+    """Sequences the kernel's loop parses in one block, the failing one
+    included; 0 for an empty block."""
+    clen = len(blob)
+    ip = op = sequences = 0
+
+    def ext(ip):  # the 255-extension string at ip: (sum, ip after), or None
+        total = 0
+        while ip < clen:
+            total += blob[ip]
+            ip += 1
+            if blob[ip - 1] != 255:
+                return total, ip
+        return None
+
+    while ip < clen:
+        sequences += 1
+        token = blob[ip]
+        ip += 1
+        lit = token >> 4
+        if lit == 15:
+            more = ext(ip)
+            if more is None:
+                return sequences
+            lit, ip = lit + more[0], more[1]
+        if ip + lit > clen or op + lit > 65536:
+            return sequences
+        op, ip = op + lit, ip + lit
+        if ip == clen or ip + 2 > clen:
+            return sequences
+        dist = blob[ip] | (blob[ip + 1] << 8)
+        ip += 2
+        if dist == 0 or dist > op:
+            return sequences
+        ml = token & 15
+        if ml == 15:
+            more = ext(ip)
+            if more is None:
+                return sequences
+            ml, ip = ml + more[0], more[1]
+        if op + ml + 4 > 65536:
+            return sequences
+        op += ml + 4
+    return sequences
+
+
+def test_with_steps_counts_the_sequences_walked(case):
+    blobs = case["blobs"] + [b for b, _, _ in LZ4_EDGE_BLOCKS] + [
+        b"", b"\xf0\xff\xff", b"\x14a\x01", b"\x1fa\x01\x00\xff",
+        b"\x14a\x02\x00\x00", b"\x1fa\x01\x00" + b"\xff" * 257 + b"\x00\x00"]
+    buf, lens = _pack(blobs, max(len(b) for b in blobs) + 5)
+    comp, comp_lens = to_device_batch(buf, lens, "cpu")
+    *_, steps = lz4_decode.decode(comp, comp_lens, with_steps=True)
+    assert steps.dtype == torch.int32
+    assert steps.tolist() == [_sequence_walk(b) for b in blobs]
+    assert all(n > 0 for n in steps[:len(case["raws"])].tolist())
+
+
+@pytest.mark.parametrize("out_cap", [65536, 4096])
+def test_with_steps_leaves_the_three_outputs_as_they_were(case, out_cap):
+    buf, lens = _pack(case["blobs"], max(len(b) for b in case["blobs"]) + 5)
+    comp, comp_lens = to_device_batch(buf, lens, "cpu")
+    plain = lz4_decode.decode(comp, comp_lens, out_cap=out_cap)
+    stepped = lz4_decode.decode(comp, comp_lens, out_cap=out_cap, with_steps=True)
+    assert len(plain) == 3 and len(stepped) == 4
+    for a, b in zip(plain, stepped):
+        assert torch.equal(a, b)

@@ -43,8 +43,11 @@ def test_port_imports_with_jax_blocked():
             "import aircompressor_tpu_torch.host.deflate.plan\n"
             "import aircompressor_tpu_torch.ops.lzo_decode\n"
             "import aircompressor_tpu_torch.ops.deflate_decode\n"
+            "import aircompressor_tpu_torch.ops.snappy_decode_r2\n"
+            "import aircompressor_tpu_torch.ops.profiling\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "assert aircompressor_tpu_torch.ops.xxhash.launches == 0\n"
+            "assert aircompressor_tpu_torch.ops.snappy_decode_r2.launches == 0\n"
             "loaded = sorted(m for m in sys.modules\n"
             f"                if m.split('.')[0] in {BLOCKED!r})\n"
             f"assert loaded == sorted({BLOCKED!r}), loaded\n"

@@ -147,3 +147,71 @@ def test_decompress_chunks_flags_chunk_over_max_chunk():
     assert exc.value.offset == 0
     with pytest.raises(ValueError):
         SnappyBatchCodec(65537, device="cpu")
+
+
+# Malformed blocks for the step counts: no varint, an overlong varint, a
+# literal past the input, a zero offset, an offset past the output, a
+# truncated copy, a high offset byte, a declared length with bit 31 set.
+STEP_MALFORMED = [
+    b"", b"\x80\x80\x80\x80\x80\x01", b"\x05\x10ab", b"\x08\x0cabcd\x01\x00",
+    b"\x08\x0cabcd\x01\x09", b"\x08\x0cabcd\x02\x04",
+    b"\x08\x0cabcd\x0f\x04\x00\x00\x01", b"\xfe\xff\xff\xff\x0f\x0cabcd"]
+
+
+def _token_walk(blob: bytes) -> int:
+    """Tokens the kernel's loop parses in one chunk, the failing one
+    included; 0 where the varint already rejects the chunk."""
+    clen, data = len(blob), blob + bytes(5)
+    declared, vlen = data[0] & 0x7F, 1
+    more = data[0] >= 128
+    for k in range(1, 5):
+        if more:
+            declared |= (data[k] & 0x7F) << (7 * k)
+            vlen += 1
+        more = more and data[k] >= 128
+    if declared > 65536 or vlen > clen:
+        return 0
+    ip, op, tokens = vlen, 0, 0
+    while ip < clen:
+        tokens += 1
+        tag = data[ip]
+        kind, n = tag & 3, tag >> 2
+        word = int.from_bytes(data[ip + 1:ip + 5], "little")
+        if kind == 0:
+            extra = max(0, n - 59)
+            length = (word & ((1 << (8 * extra)) - 1) if extra else n) + 1
+            if length > 65536 or ip + 1 + extra + length > clen or op + length > declared:
+                return tokens
+            ip += 1 + extra + length
+        else:
+            tok = (2, 3, 5)[kind - 1]
+            length = 4 + (n & 7) if kind == 1 else n + 1
+            dist = (((tag >> 5) << 8) | data[ip + 1] if kind == 1
+                    else word & 0xFFFF if kind == 2 else word)
+            if ip + tok > clen or op + length > declared or not 0 < dist <= op:
+                return tokens
+            ip += tok
+        op += length
+    return tokens
+
+
+def test_with_steps_counts_the_tokens_walked(case):
+    blobs = case["blobs"] + STEP_MALFORMED
+    buf, lens = _pack(blobs, max(len(b) for b in blobs) + 5)
+    comp, comp_lens = to_device_batch(buf, lens, "cpu")
+    *_, steps = snappy_decode.decode(comp, comp_lens, with_steps=True)
+    assert steps.dtype == torch.int32
+    assert steps.tolist() == [_token_walk(b) for b in blobs]
+    assert all((n > 0) == (0 < len(r) <= 65536)
+               for n, r in zip(steps.tolist(), case["raws"]))
+
+
+@pytest.mark.parametrize("out_cap", [65536, 4096])
+def test_with_steps_leaves_the_three_outputs_as_they_were(case, out_cap):
+    buf, lens = _pack(case["blobs"], max(len(b) for b in case["blobs"]) + 5)
+    comp, comp_lens = to_device_batch(buf, lens, "cpu")
+    plain = snappy_decode.decode(comp, comp_lens, out_cap=out_cap)
+    stepped = snappy_decode.decode(comp, comp_lens, out_cap=out_cap, with_steps=True)
+    assert len(plain) == 3 and len(stepped) == 4
+    for a, b in zip(plain, stepped):
+        assert torch.equal(a, b)
