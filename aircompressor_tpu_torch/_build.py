@@ -43,16 +43,16 @@ _U64 = ctypes.c_uint64
 _SIGNATURES = {
     "acx_snappy_decode": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P],
     "acx_snappy_decode_r2": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P],
-    "acx_snappy_encode": [_P, _P, _I, _I, _P, _P, _P, _P],
+    "acx_snappy_encode": [_P, _P, _I, _I, _P, _P, _P, _P, _P],
     "acx_xxh64": [_P, _P, _I, _I, _U64, _P, _P],
     "acx_lz4_decode": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P],
-    "acx_lz4_encode": [_P, _P, _I, _I, _P, _P, _P, _P],
+    "acx_lz4_encode": [_P, _P, _I, _I, _P, _P, _P, _P, _P],
     "acx_xxh32": [_P, _P, _I, _I, _U32, _P, _P],
     "acx_zstd_huffman": [_P, _L, _P, _P, _I, _P, _P, _P],
     "acx_zstd_fse": [_P, _L, _P, _P, _P, _I, _P, _P, _P, _P],
     "acx_zstd_execute": [_P, _L, _P, _L, _P, _P, _P, _I, _P, _I, _P, _P, _P],
-    "acx_lzo_decode": [_P, _P, _I, _I, _P, _P, _P, _I, _P],
-    "acx_deflate_decode": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P],
+    "acx_lzo_decode": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P],
+    "acx_deflate_decode": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P],
     "acx_zstd_dfast": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "acx_zstd_emit": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
 }

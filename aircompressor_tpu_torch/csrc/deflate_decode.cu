@@ -26,6 +26,12 @@
 // subtable index is at most 6 bits and an extra-bit count 4 bits: the
 // planner makes no larger ones, and the cut keeps a shift defined.)
 //
+// With a non-null `steps`, lane 0 also writes the iterations of the symbol
+// loop for each chunk, summed over its Huffman blocks: one for each
+// literal/length symbol looked up (a length with its distance is one), the
+// end-of-block symbol and the failing one included; stored blocks add none.
+// A null `steps` writes nothing more.
+//
 // Design: the lanes of a warp walk the symbol chain together, each keeping
 // the same 64-bit bit buffer (every lane loads the same byte or entry, one
 // transaction), so control flow never diverges. Lane 0 writes a literal at
@@ -59,7 +65,7 @@ deflate_decode_kernel(const uint8_t* __restrict__ comp,
                       const int32_t* __restrict__ tabs,
                       const int32_t* __restrict__ index, uint8_t* out,
                       int32_t* __restrict__ out_lens, uint8_t* __restrict__ ok,
-                      int out_cap) {
+                      int out_cap, int32_t* __restrict__ steps) {
   const int lane = threadIdx.x & 31;
   const int chunk = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (chunk >= batch) return;  // the same for every lane of the warp
@@ -111,6 +117,7 @@ deflate_decode_kernel(const uint8_t* __restrict__ comp,
   bool err = clen <= 0 || clen > cap;
   bool done = false;
   int op = 0;
+  int count = 0;
   for (int blk = 0; !err && !done; ++blk) {
     if (blk >= n_blocks) {
       err = true;
@@ -138,6 +145,7 @@ deflate_decode_kernel(const uint8_t* __restrict__ comp,
     refill();
     take(d[1] & 7);
     while (true) {
+      ++count;
       const int32_t e = lookup(ll_root);
       const int sym_op = e >> 28;
       const int val = e & 0x3FFFFF;
@@ -182,6 +190,7 @@ deflate_decode_kernel(const uint8_t* __restrict__ comp,
   if (lane == 0) {
     out_lens[chunk] = op;
     ok[chunk] = !err && done;
+    if (steps != nullptr) steps[chunk] = count;
   }
 }
 
@@ -189,13 +198,14 @@ deflate_decode_kernel(const uint8_t* __restrict__ comp,
 
 // Launches the decode on `stream` and returns cudaGetLastError(). The caller
 // allocates every buffer: out (batch, out_cap) uint8, out_lens (batch,)
-// int32, ok (batch,) bool; desc holds 8 int32 fields a block and index 4
-// int32 a chunk: first block, blocks, first table entry, entries.
+// int32, ok (batch,) bool, steps (batch,) int32 or null; desc holds 8 int32
+// fields a block and index 4 int32 a chunk: first block, blocks, first table
+// entry, entries.
 extern "C" int acx_deflate_decode(const void* comp, const void* comp_lens,
                                   int batch, int cap, const void* desc,
                                   const void* tabs, const void* index,
                                   void* out, void* out_lens, void* ok,
-                                  int out_cap, void* stream) {
+                                  int out_cap, void* steps, void* stream) {
   if (batch > 0) {
     const int blocks = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
     deflate_decode_kernel<<<blocks, kWarpsPerBlock * 32, 0,
@@ -204,7 +214,8 @@ extern "C" int acx_deflate_decode(const void* comp, const void* comp_lens,
         static_cast<const int32_t*>(comp_lens), batch, cap,
         static_cast<const int32_t*>(desc), static_cast<const int32_t*>(tabs),
         static_cast<const int32_t*>(index), static_cast<uint8_t*>(out),
-        static_cast<int32_t*>(out_lens), static_cast<uint8_t*>(ok), out_cap);
+        static_cast<int32_t*>(out_lens), static_cast<uint8_t*>(ok), out_cap,
+        static_cast<int32_t*>(steps));
   }
   return static_cast<int>(cudaGetLastError());
 }

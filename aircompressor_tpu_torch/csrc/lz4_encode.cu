@@ -25,6 +25,10 @@
 // past a chunk's length is read: a probe reads below len - 8, extension below
 // len - 5, the seed at mend - 2 below len - 3.
 //
+// With a non-null `steps`, lane 0 also writes the iterations of the
+// match-search loop for each chunk: the probes of the scan, a probe that hits
+// and the match it emits being one. A null `steps` writes nothing more.
+//
 // What bounds it on this card: the scan is a serial chain per chunk, each
 // probe's position depending on the probe before, with a table lookup and a
 // load of the candidate's bytes on its path. The card is filled only by the
@@ -59,7 +63,7 @@ __global__ void __launch_bounds__(32)
 lz4_encode_kernel(const uint8_t* __restrict__ data,
                   const int32_t* __restrict__ lengths, int cap,
                   uint8_t* __restrict__ comp, int32_t* __restrict__ comp_lens,
-                  uint8_t* __restrict__ ok) {
+                  uint8_t* __restrict__ ok, int32_t* __restrict__ steps) {
   __shared__ uint4 table4[kTableSize * sizeof(uint16_t) / sizeof(uint4)];
   uint16_t* table = reinterpret_cast<uint16_t*>(table4);
   const int lane = threadIdx.x;
@@ -110,7 +114,9 @@ lz4_encode_kernel(const uint8_t* __restrict__ data,
   int ip = 0;
   int anchor = 0;
   int skip = 64;
+  int count = 0;
   while (ip < find_limit) {
+    ++count;
     const uint32_t word = load_u32(src + ip);
     const int h = hash_of(word);
     int cand = 0;
@@ -170,6 +176,7 @@ lz4_encode_kernel(const uint8_t* __restrict__ data,
   if (lane == 0) {
     comp_lens[chunk] = min(op, kOutCap);
     ok[chunk] = op + 8 <= kOutCap;
+    if (steps != nullptr) steps[chunk] = count;
   }
 }
 
@@ -177,10 +184,11 @@ lz4_encode_kernel(const uint8_t* __restrict__ data,
 
 // Launches the encode on `stream` and returns cudaGetLastError(). The caller
 // allocates every buffer: comp (batch, 66560) uint8, comp_lens (batch,)
-// int32, ok (batch,) bool; comp must start 16-byte aligned.
+// int32, ok (batch,) bool, steps (batch,) int32 or null; comp must start
+// 16-byte aligned.
 extern "C" int acx_lz4_encode(const void* data, const void* lengths, int batch,
                               int cap, void* comp, void* comp_lens, void* ok,
-                              void* stream) {
+                              void* steps, void* stream) {
   if (batch > 0) {
     static const cudaError_t carveout = cudaFuncSetAttribute(
         lz4_encode_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -189,7 +197,7 @@ extern "C" int acx_lz4_encode(const void* data, const void* lengths, int batch,
     lz4_encode_kernel<<<batch, 32, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(data), static_cast<const int32_t*>(lengths),
         cap, static_cast<uint8_t*>(comp), static_cast<int32_t*>(comp_lens),
-        static_cast<uint8_t*>(ok));
+        static_cast<uint8_t*>(ok), static_cast<int32_t*>(steps));
   }
   return static_cast<int>(cudaGetLastError());
 }

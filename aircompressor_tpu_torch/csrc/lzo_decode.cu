@@ -28,6 +28,12 @@
 // reached with no error (bytes after it are ignored). Bytes at or past the
 // output length are zero.
 //
+// With a non-null `steps`, lane 0 also writes the iterations of the command
+// loop for each chunk: the commands parsed after the first-byte literal run,
+// the stop command and the failing one included (a missing stop command is
+// one failing iteration); 0 for a chunk rejected before the loop. A null
+// `steps` writes nothing more.
+//
 // Design: the lanes of a warp walk the command chain together (every lane
 // reads the same command bytes, one transaction). A zero run is read 32
 // bytes a step, one a lane, and __ballot_sync finds its first nonzero byte.
@@ -61,7 +67,8 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 lzo_decode_kernel(const uint8_t* __restrict__ comp,
                   const int32_t* __restrict__ comp_lens, int batch, int cap,
                   uint8_t* out, int32_t* __restrict__ out_lens,
-                  uint8_t* __restrict__ ok, int out_cap) {
+                  uint8_t* __restrict__ ok, int out_cap,
+                  int32_t* __restrict__ steps) {
   const int lane = threadIdx.x & 31;
   const int chunk = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (chunk >= batch) return;  // the same for every lane of the warp
@@ -98,6 +105,7 @@ lzo_decode_kernel(const uint8_t* __restrict__ comp,
   bool done = false;
   int ip = 0;
   int state = 0;
+  int count = 0;
   if (!err && src[0] > 17) {  // first-byte literal run
     const int n = src[0] - 17;
     err = 1 + n > clen;
@@ -108,6 +116,7 @@ lzo_decode_kernel(const uint8_t* __restrict__ comp,
     }
   }
   while (!err) {
+    ++count;
     if (ip >= clen) {  // missing stop command
       err = true;
       break;
@@ -185,6 +194,7 @@ lzo_decode_kernel(const uint8_t* __restrict__ comp,
   if (lane == 0) {
     out_lens[chunk] = op;
     ok[chunk] = !err && done;
+    if (steps != nullptr) steps[chunk] = count;
   }
 }
 
@@ -192,10 +202,10 @@ lzo_decode_kernel(const uint8_t* __restrict__ comp,
 
 // Launches the decode on `stream` and returns cudaGetLastError(). The caller
 // allocates every buffer: out (batch, out_cap) uint8, out_lens (batch,)
-// int32, ok (batch,) bool.
+// int32, ok (batch,) bool, and steps (batch,) int32 or null.
 extern "C" int acx_lzo_decode(const void* comp, const void* comp_lens,
                               int batch, int cap, void* out, void* out_lens,
-                              void* ok, int out_cap, void* stream) {
+                              void* ok, int out_cap, void* steps, void* stream) {
   if (batch > 0) {
     const int blocks = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
     lzo_decode_kernel<<<blocks, kWarpsPerBlock * 32, 0,
@@ -203,7 +213,7 @@ extern "C" int acx_lzo_decode(const void* comp, const void* comp_lens,
         static_cast<const uint8_t*>(comp),
         static_cast<const int32_t*>(comp_lens), batch, cap,
         static_cast<uint8_t*>(out), static_cast<int32_t*>(out_lens),
-        static_cast<uint8_t*>(ok), out_cap);
+        static_cast<uint8_t*>(ok), out_cap, static_cast<int32_t*>(steps));
   }
   return static_cast<int>(cudaGetLastError());
 }

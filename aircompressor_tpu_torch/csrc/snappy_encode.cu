@@ -24,6 +24,10 @@
 // after a match is made only where a later probe can read it (mend < len -
 // 15), so no byte at or past a chunk's length is ever read.
 //
+// With a non-null `steps`, lane 0 also writes the iterations of the
+// match-search loop for each chunk: the probes of the scan, a probe that hits
+// and the match it emits being one. A null `steps` writes nothing more.
+//
 // What bounds it on this card: the scan is a serial chain per chunk, each
 // probe's position depending on the probe before, with a table lookup and a
 // load of the candidate's bytes on its path. The card is filled only by the
@@ -55,7 +59,7 @@ __global__ void __launch_bounds__(32)
 snappy_encode_kernel(const uint8_t* __restrict__ data,
                      const int32_t* __restrict__ lengths, int cap,
                      uint8_t* __restrict__ comp, int32_t* __restrict__ comp_lens,
-                     uint8_t* __restrict__ ok) {
+                     uint8_t* __restrict__ ok, int32_t* __restrict__ steps) {
   __shared__ uint4 table4[kTableSize * sizeof(uint16_t) / sizeof(uint4)];
   uint16_t* table = reinterpret_cast<uint16_t*>(table4);
   const int lane = threadIdx.x;
@@ -129,7 +133,9 @@ snappy_encode_kernel(const uint8_t* __restrict__ data,
   int ip = 0;
   int anchor = 0;
   int skip = 32;
+  int count = 0;
   while (ip < n - kInputMargin) {
+    ++count;
     const uint32_t word = load_u32(src + ip);
     const int h = hash_of(word);
     int cand = 0;
@@ -191,6 +197,7 @@ snappy_encode_kernel(const uint8_t* __restrict__ data,
   if (lane == 0) {
     comp_lens[chunk] = min(op, kOutCap);
     ok[chunk] = op + 8 <= kOutCap;
+    if (steps != nullptr) steps[chunk] = count;
   }
 }
 
@@ -198,10 +205,12 @@ snappy_encode_kernel(const uint8_t* __restrict__ data,
 
 // Launches the encode on `stream` and returns cudaGetLastError(). The caller
 // allocates every buffer: comp (batch, 76800) uint8, comp_lens (batch,)
-// int32, ok (batch,) bool; data rows must start 16-byte aligned in comp.
+// int32, ok (batch,) bool, steps (batch,) int32 or null; data rows must
+// start 16-byte aligned in comp.
 extern "C" int acx_snappy_encode(const void* data, const void* lengths,
                                  int batch, int cap, void* comp,
-                                 void* comp_lens, void* ok, void* stream) {
+                                 void* comp_lens, void* ok, void* steps,
+                                 void* stream) {
   if (batch > 0) {
     static const cudaError_t carveout = cudaFuncSetAttribute(
         snappy_encode_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -210,7 +219,7 @@ extern "C" int acx_snappy_encode(const void* data, const void* lengths,
     snappy_encode_kernel<<<batch, 32, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(data), static_cast<const int32_t*>(lengths),
         cap, static_cast<uint8_t*>(comp), static_cast<int32_t*>(comp_lens),
-        static_cast<uint8_t*>(ok));
+        static_cast<uint8_t*>(ok), static_cast<int32_t*>(steps));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,6 +17,13 @@ output past 64 KB. A failed chunk stops at the failing symbol or block, and
 ``out_lens`` counts the bytes produced before it. ``ok`` requires the final
 block's end and ``out_lens <= out_cap``.
 
+``with_steps=True`` adds a fourth result, (B,) int32: the iterations of
+the kernel's symbol loop for each chunk, summed over its Huffman blocks:
+one for each literal/length symbol looked up (a length with its distance is
+one), the end-of-block symbol and the failing one included; stored blocks
+add none. The JAX kernel's ``steps`` count its TPU loop bodies; the port
+counts its own loop.
+
 ``decode`` launches ``csrc/deflate_decode.cu`` for a CUDA tensor and uses
 ``decode_plain`` only for a tensor on the CPU.
 """
@@ -75,14 +82,14 @@ def _check_plan(plan: DevicePlan, comp: torch.Tensor) -> DevicePlan:
 
 
 def decode(comp: torch.Tensor, comp_lens: torch.Tensor, plan: DevicePlan,
-           out_cap: int = MAX_OUT):
+           out_cap: int = MAX_OUT, with_steps: bool = False):
     """Decode B raw-deflate chunks of at most 64 KB out each with their
     plan; see the module doc."""
     global launches, rows
     comp, comp_lens = check_decode_args(comp, comp_lens, out_cap)
     plan = _check_plan(plan, comp)
     if comp.device.type == "cpu":
-        return decode_plain(comp, comp_lens, plan, out_cap)
+        return decode_plain(comp, comp_lens, plan, out_cap, with_steps)
     if comp.device.type != "cuda":
         raise ValueError(f"no deflate decode for device {comp.device}")
     lib = _build.load()
@@ -90,22 +97,25 @@ def decode(comp: torch.Tensor, comp_lens: torch.Tensor, plan: DevicePlan,
     out = torch.empty((B, out_cap), dtype=torch.uint8, device=comp.device)
     out_lens = torch.empty(B, dtype=torch.int32, device=comp.device)
     ok = torch.empty(B, dtype=torch.bool, device=comp.device)
+    steps = torch.empty(B, dtype=torch.int32, device=comp.device) if with_steps else None
     if B:
         with torch.cuda.device(comp.device):
             err = lib.acx_deflate_decode(
                 comp.data_ptr(), comp_lens.data_ptr(), B, cap,
                 plan.desc.data_ptr(), plan.tabs.data_ptr(), plan.index.data_ptr(),
                 out.data_ptr(), out_lens.data_ptr(), ok.data_ptr(), out_cap,
+                steps.data_ptr() if with_steps else None,
                 torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"deflate decode kernel launch failed: CUDA error {err}")
         launches += 1
         rows += B
-    return out, out_lens, ok & (out_lens <= out_cap)
+    result = (out, out_lens, ok & (out_lens <= out_cap))
+    return result + (steps,) if with_steps else result
 
 
 def decode_plain(comp: torch.Tensor, comp_lens: torch.Tensor, plan: DevicePlan,
-                 out_cap: int = MAX_OUT):
+                 out_cap: int = MAX_OUT, with_steps: bool = False):
     """Plain PyTorch decode with the kernel's results, for tests and checks.
 
     Block by block for every chunk at once. A stored block is one copy. For
@@ -114,7 +124,8 @@ def decode_plain(comp: torch.Tensor, comp_lens: torch.Tensor, plan: DevicePlan,
     distance), giving the position after it; the chain from the block's
     start by doubling jump tables; output offsets by cumsum; the first
     failing symbol on the chain; the covering symbol of each output byte by
-    searchsorted, and copies resolved by pointer doubling.
+    searchsorted, and copies resolved by pointer doubling. A block's step
+    count is its chain's symbols up to the first failing one, included.
     """
     comp, comp_lens = check_decode_args(comp, comp_lens, out_cap)
     plan = _check_plan(plan, comp)
@@ -136,6 +147,7 @@ def decode_plain(comp: torch.Tensor, comp_lens: torch.Tensor, plan: DevicePlan,
     op = torch.zeros(B, dtype=i64, device=dev)
     err = (clen <= 0) | (clen > cap)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
+    steps = torch.zeros(B, dtype=i64, device=dev)
     n_bits = 8 * cap + 1  # the bit positions a chain can hold; past them it failed
 
     for blk in range(int(n_blocks.max()) + 1 if B else 0):
@@ -163,23 +175,27 @@ def decode_plain(comp: torch.Tensor, comp_lens: torch.Tensor, plan: DevicePlan,
 
         huff = live & (d[:, 0] != 0)
         bad = huff & ((d[:, 1] < 0) | (d[:, 1] >= n_bits))
+        steps += (bad & (d[:, 1] >= 0)).to(i64)  # past the chunk: its first symbol fails
         err |= bad
         huff &= ~bad
         h = torch.nonzero(huff)[:, 0]
         if h.numel():
-            h_out, h_op, h_bad = _huffman_block(
+            h_out, h_op, h_bad, h_steps = _huffman_block(
                 word[h], 8 * clen[h], tabs, t_start[h], n_tab[h], d[h],
                 out[h, :out_cap], op[h], n_bits, out_cap)
             out[h, :out_cap] = h_out
             op[h] = h_op
             err[h] |= h_bad
             done[h] |= ~h_bad & last[h]
-    return out[:, :out_cap], op.to(torch.int32), done & ~err & (op <= out_cap)
+            steps[h] += h_steps
+    result = (out[:, :out_cap], op.to(torch.int32), done & ~err & (op <= out_cap))
+    return result + (steps.to(torch.int32),) if with_steps else result
 
 
 def _huffman_block(word, end_bit, tabs, t_start, n_tab, d, out, op0, n_bits, out_cap):
     """One Huffman block of h chunks (rows of the arguments): (out with the
-    block's bytes, output length after it, whether it failed)."""
+    block's bytes, output length after it, whether it failed, the symbols
+    its loop looked up)."""
     h = word.shape[0]
     dev = word.device
     i64 = torch.int64
@@ -244,6 +260,7 @@ def _huffman_block(word, end_bit, tabs, t_start, n_tab, d, out, op0, n_bits, out
     failed = stop.any(1)
     first = stop.to(torch.uint8).argmax(1, keepdim=True)
     op_end = torch.where(failed, op_at.gather(1, first)[:, 0], op0 + incl[:, -1])
+    steps = (on & (~failed[:, None] | (p <= first))).sum(1)
 
     # Output bytes: covering symbol by searchsorted, copies by pointer
     # doubling (through bytes of earlier blocks too).
@@ -256,4 +273,4 @@ def _huffman_block(word, end_bit, tabs, t_start, n_tab, d, out, op0, n_bits, out
     for _ in range(out_cap.bit_length()):
         ptr = ptr.gather(1, ptr)
     out = torch.where(in_blk, vals.gather(1, ptr), out.to(i64)).to(torch.uint8)
-    return out, op_end, failed
+    return out, op_end, failed, steps

@@ -23,6 +23,12 @@ length's extension. After a match, ``mend - 2`` goes into the table and
 ``ip = anchor = mend``, ``skip = 64``. The tail from ``anchor`` is one
 literals-only sequence (match nibble 0); an empty chunk is the one byte 0.
 
+``with_steps=True`` adds a fourth result, (B,) int32: the iterations of
+the kernel's match-search loop for each chunk, that is the probes of its
+scan (a probe that hits, with the extension and the sequence it emits, is
+one). The JAX kernel's ``steps`` count its TPU loop bodies; the port counts
+its own loop.
+
 ``encode`` launches ``csrc/lz4_encode.cu`` for a CUDA tensor and uses
 ``encode_plain`` only for a tensor on the CPU.
 """
@@ -48,12 +54,12 @@ launches = 0
 rows = 0
 
 
-def encode(data: torch.Tensor, lengths: torch.Tensor):
+def encode(data: torch.Tensor, lengths: torch.Tensor, with_steps: bool = False):
     """Encode B chunks of at most 64 KB each; see the module doc."""
     global launches, rows
     data, lengths = check_encode_args(data, lengths)
     if data.device.type == "cpu":
-        return encode_plain(data, lengths)
+        return encode_plain(data, lengths, with_steps)
     if data.device.type != "cuda":
         raise ValueError(f"no LZ4 encode for device {data.device}")
     lib = _build.load()
@@ -61,17 +67,19 @@ def encode(data: torch.Tensor, lengths: torch.Tensor):
     comp = torch.empty((B, OUT_CAP), dtype=torch.uint8, device=data.device)
     comp_lens = torch.empty(B, dtype=torch.int32, device=data.device)
     ok = torch.empty(B, dtype=torch.bool, device=data.device)
+    steps = torch.empty(B, dtype=torch.int32, device=data.device) if with_steps else None
     if B:
         with torch.cuda.device(data.device):
             err = lib.acx_lz4_encode(
                 data.data_ptr(), lengths.data_ptr(), B, cap, comp.data_ptr(),
                 comp_lens.data_ptr(), ok.data_ptr(),
+                steps.data_ptr() if with_steps else None,
                 torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"lz4 encode kernel launch failed: CUDA error {err}")
         launches += 1
         rows += B
-    return comp, comp_lens, ok
+    return (comp, comp_lens, ok, steps) if with_steps else (comp, comp_lens, ok)
 
 
 def _hash(u: torch.Tensor) -> torch.Tensor:
@@ -113,7 +121,7 @@ def _emit_sequence(out, op, src, mask, anchor, lit, ml, dist):
     return _emit_length(out, op + two, match & (ml - 4 >= 15), ml - 4)
 
 
-def encode_plain(data: torch.Tensor, lengths: torch.Tensor):
+def encode_plain(data: torch.Tensor, lengths: torch.Tensor, with_steps: bool = False):
     """Plain PyTorch encode with the kernel's results, for tests and checks.
 
     Steps all B chunks in lockstep with masks, as the Pallas kernel's loop
@@ -141,6 +149,7 @@ def encode_plain(data: torch.Tensor, lengths: torch.Tensor):
     ip = zero.clone()
     anchor = zero.clone()
     skip = torch.full((B,), 64, dtype=i64, device=dev)
+    steps = zero.clone()
     live = torch.ones(B, dtype=torch.bool, device=dev)
     back_k = torch.arange(1, BACK_CAP + 1, device=dev)[None, :]
     while True:
@@ -151,6 +160,7 @@ def encode_plain(data: torch.Tensor, lengths: torch.Tensor):
             live = live & ~tail
         if not scan.any():
             break
+        steps += scan.to(i64)
         u = u32le(src, ip)
         h = _hash(u)
         cand = table.gather(1, h[:, None])[:, 0]
@@ -196,5 +206,5 @@ def encode_plain(data: torch.Tensor, lengths: torch.Tensor):
         skip = torch.where(hit, 64, skip)
 
     ok = op + 8 <= OUT_CAP
-    return (out[:, :OUT_CAP].contiguous(), op.clamp(max=OUT_CAP).to(torch.int32),
-            ok)
+    result = (out[:, :OUT_CAP].contiguous(), op.clamp(max=OUT_CAP).to(torch.int32), ok)
+    return result + (steps.to(torch.int32),) if with_steps else result

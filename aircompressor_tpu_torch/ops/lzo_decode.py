@@ -15,6 +15,13 @@ output would pass 64 KB. A malformed chunk stops at the failing step, and
 literals are a step of their own). ``ok`` requires the stop command and
 ``out_lens <= out_cap``; bytes after the stop command are ignored.
 
+``with_steps=True`` adds a fourth result, (B,) int32: the iterations of
+the kernel's command loop for each chunk, that is the commands it parsed
+after the first-byte literal run, the stop command and the failing one
+included (a missing stop command is one failing iteration); 0 for a chunk
+rejected before the loop. The JAX kernel's ``steps`` count its TPU loop
+bodies; the port counts its own loop.
+
 ``decode`` launches ``csrc/lzo_decode.cu`` for a CUDA tensor and uses
 ``decode_plain`` only for a tensor on the CPU.
 """
@@ -33,12 +40,12 @@ rows = 0
 
 
 def decode(comp: torch.Tensor, comp_lens: torch.Tensor,
-           out_cap: int = MAX_OUT):
+           out_cap: int = MAX_OUT, with_steps: bool = False):
     """Decode B LZO1X blocks of at most 64 KB each; see the module doc."""
     global launches, rows
     comp, comp_lens = check_decode_args(comp, comp_lens, out_cap)
     if comp.device.type == "cpu":
-        return decode_plain(comp, comp_lens, out_cap)
+        return decode_plain(comp, comp_lens, out_cap, with_steps)
     if comp.device.type != "cuda":
         raise ValueError(f"no LZO decode for device {comp.device}")
     lib = _build.load()
@@ -46,21 +53,24 @@ def decode(comp: torch.Tensor, comp_lens: torch.Tensor,
     out = torch.empty((B, out_cap), dtype=torch.uint8, device=comp.device)
     out_lens = torch.empty(B, dtype=torch.int32, device=comp.device)
     ok = torch.empty(B, dtype=torch.bool, device=comp.device)
+    steps = torch.empty(B, dtype=torch.int32, device=comp.device) if with_steps else None
     if B:
         with torch.cuda.device(comp.device):
             err = lib.acx_lzo_decode(
                 comp.data_ptr(), comp_lens.data_ptr(), B, cap, out.data_ptr(),
                 out_lens.data_ptr(), ok.data_ptr(), out_cap,
+                steps.data_ptr() if with_steps else None,
                 torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"lzo decode kernel launch failed: CUDA error {err}")
         launches += 1
         rows += B
-    return out, out_lens, ok & (out_lens <= out_cap)
+    result = (out, out_lens, ok & (out_lens <= out_cap))
+    return result + (steps,) if with_steps else result
 
 
 def decode_plain(comp: torch.Tensor, comp_lens: torch.Tensor,
-                 out_cap: int = MAX_OUT):
+                 out_cap: int = MAX_OUT, with_steps: bool = False):
     """Plain PyTorch decode with the kernel's results, for tests and checks.
 
     One command of every live chunk a step, with its trailing literals: the
@@ -68,7 +78,7 @@ def decode_plain(comp: torch.Tensor, comp_lens: torch.Tensor,
     a table of the first nonzero byte at or after each position (a reverse
     running minimum), the literals and the match by one scatter each, a
     match as out[op+k] = out[op-dist + k % dist]. The loop ends when every
-    chunk has stopped.
+    chunk has stopped; a chunk's step count is the steps it was live in.
     """
     comp, comp_lens = check_decode_args(comp, comp_lens, out_cap)
     B, cap = comp.shape
@@ -113,7 +123,7 @@ def decode_plain(comp: torch.Tensor, comp_lens: torch.Tensor,
     no = torch.zeros(B, dtype=torch.bool, device=dev)
     err = (clen <= 0) | (clen > cap)
     done = no.clone()
-    op, ip, state = zero.clone(), zero.clone(), zero.clone()
+    op, ip, state, steps = zero.clone(), zero.clone(), zero.clone(), zero.clone()
 
     # The first-byte literal run.
     t0 = raw[:, 0]
@@ -128,6 +138,7 @@ def decode_plain(comp: torch.Tensor, comp_lens: torch.Tensor,
 
     while True:
         live = ~err & ~done
+        steps += live.to(i64)
         err |= live & (ip >= clen)  # missing stop command
         live &= ~err
         if not bool(live.any()):
@@ -194,4 +205,5 @@ def decode_plain(comp: torch.Tensor, comp_lens: torch.Tensor,
     j = torch.arange(out_cap, device=dev)[None, :]
     out = torch.where(j < op[:, None], out[:, :out_cap], 0)
     ok = done & ~err & (op <= out_cap)
-    return out, op.to(torch.int32), ok
+    result = (out, op.to(torch.int32), ok)
+    return result + (steps.to(torch.int32),) if with_steps else result

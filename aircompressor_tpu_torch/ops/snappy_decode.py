@@ -15,7 +15,13 @@ JAX kernel's ``steps`` count its TPU loop bodies of 8 tokens over 64-chunk
 grid steps; that is TPU machinery, so the port counts its own loop instead.
 
 ``decode`` launches ``csrc/snappy_decode.cu`` for a CUDA tensor and uses
-``decode_plain`` only for a tensor on the CPU.
+``decode_plain`` only for a tensor on the CPU. The kernel keeps each
+chunk's recent output in a shared-memory window (``WINDOWS``; two
+instantiations of one template): 32 KB up to ``SMALL_BATCH`` chunks, 4 KB
+above, so that 4096 chunks fit the card in one wave. ``copy_reach`` (the
+farthest copy distance the kernel reads from its window) and
+``distance_shares`` (the share of copies, and of their bytes, within a
+reach) describe that choice on real data.
 """
 
 from __future__ import annotations
@@ -31,6 +37,15 @@ from ._rows import MAX_CHUNK as MAX_OUT, check_decode_args
 # kernel was used. Only a launch of the CUDA kernel adds to them.
 launches = 0
 rows = 0
+
+WINDOWS = (4096, 32768)  # the kernel's output windows, in bytes
+SMALL_BATCH = 792  # the most chunks that take the 32 KB window (kSmallBatchChunks)
+
+
+def copy_reach(window: int) -> int:
+    """The farthest copy distance the kernel reads from a window of this
+    size; a farther copy reads device memory."""
+    return window - 64
 
 
 def decode(comp: torch.Tensor, comp_lens: torch.Tensor,
@@ -146,6 +161,26 @@ def token_table(comp: torch.Tensor, comp_lens: torch.Tensor) -> SimpleNamespace:
         is_tok=is_tok, is_lit=is_lit, tok=tok, length=length, dist=dist,
         op_at=op_at, incl=incl, bad=bad, any_bad=any_bad, first_bad=first_bad,
         op=op)
+
+
+def distance_shares(comp: torch.Tensor, comp_lens: torch.Tensor,
+                    reaches=tuple(copy_reach(w) for w in WINDOWS)) -> dict:
+    """For each reach, the share of the copies of every chunk's chain (up to
+    its first bad token) whose dist is at most that reach, and the share of
+    their output bytes; with the counts behind them."""
+    comp, comp_lens = check_decode_args(comp, comp_lens, MAX_OUT)
+    t = token_table(comp, comp_lens)
+    last = torch.where(t.any_bad, t.first_bad[:, 0] - 1, t.pos.shape[1] - 1)
+    copy = t.is_tok & ~t.is_lit & (t.pos <= last[:, None])
+    n_copies = int(copy.sum())
+    n_bytes = int(t.length[copy].sum())
+    shares = {}
+    for reach in reaches:
+        near = copy & (t.dist <= reach)
+        shares[reach] = {
+            "copies": int(near.sum()) / n_copies if n_copies else 0.0,
+            "bytes": int(t.length[near].sum()) / n_bytes if n_bytes else 0.0}
+    return {"copies": n_copies, "copy_bytes": n_bytes, "within": shares}
 
 
 def results(t: SimpleNamespace, out_cap: int):

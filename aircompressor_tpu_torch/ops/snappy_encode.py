@@ -21,6 +21,12 @@ COPY_1 where the piece is at most 11 bytes and the offset under 2048;
 after a match ``mend - 1`` goes into the table and ``ip = anchor = mend``,
 ``skip = 32``; the tail from ``anchor`` is one literal run.
 
+``with_steps=True`` adds a fourth result, (B,) int32: the iterations of
+the kernel's match-search loop for each chunk, that is the probes of its
+scan (a probe that hits, with the extension and the sequence it emits, is
+one). The JAX kernel's ``steps`` count its TPU loop bodies; the port counts
+its own loop.
+
 ``encode`` launches ``csrc/snappy_encode.cu`` for a CUDA tensor and uses
 ``encode_plain`` only for a tensor on the CPU.
 """
@@ -43,12 +49,12 @@ launches = 0
 rows = 0
 
 
-def encode(data: torch.Tensor, lengths: torch.Tensor):
+def encode(data: torch.Tensor, lengths: torch.Tensor, with_steps: bool = False):
     """Encode B chunks of at most 64 KB each; see the module doc."""
     global launches, rows
     data, lengths = check_encode_args(data, lengths)
     if data.device.type == "cpu":
-        return encode_plain(data, lengths)
+        return encode_plain(data, lengths, with_steps)
     if data.device.type != "cuda":
         raise ValueError(f"no Snappy encode for device {data.device}")
     lib = _build.load()
@@ -56,18 +62,20 @@ def encode(data: torch.Tensor, lengths: torch.Tensor):
     comp = torch.empty((B, OUT_CAP), dtype=torch.uint8, device=data.device)
     comp_lens = torch.empty(B, dtype=torch.int32, device=data.device)
     ok = torch.empty(B, dtype=torch.bool, device=data.device)
+    steps = torch.empty(B, dtype=torch.int32, device=data.device) if with_steps else None
     if B:
         with torch.cuda.device(data.device):
             err = lib.acx_snappy_encode(
                 data.data_ptr(), lengths.data_ptr(), B, cap, comp.data_ptr(),
                 comp_lens.data_ptr(), ok.data_ptr(),
+                steps.data_ptr() if with_steps else None,
                 torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(
                 f"snappy encode kernel launch failed: CUDA error {err}")
         launches += 1
         rows += B
-    return comp, comp_lens, ok
+    return (comp, comp_lens, ok, steps) if with_steps else (comp, comp_lens, ok)
 
 
 def _hash(u: torch.Tensor) -> torch.Tensor:
@@ -116,7 +124,7 @@ def _emit_copy(out, op, mask, length, dist):
     return op + count
 
 
-def encode_plain(data: torch.Tensor, lengths: torch.Tensor):
+def encode_plain(data: torch.Tensor, lengths: torch.Tensor, with_steps: bool = False):
     """Plain PyTorch encode with the kernel's results, for tests and checks.
 
     Steps all B chunks in lockstep with masks, as the Pallas kernel's loop
@@ -148,6 +156,7 @@ def encode_plain(data: torch.Tensor, lengths: torch.Tensor):
     ip = zero.clone()
     anchor = zero.clone()
     skip = torch.full((B,), 32, dtype=i64, device=dev)
+    steps = zero.clone()
     live = n > 0
     back_k = torch.arange(1, 128, device=dev)[None, :]
     while True:
@@ -159,6 +168,7 @@ def encode_plain(data: torch.Tensor, lengths: torch.Tensor):
             live = live & ~tail
         if not scan.any():
             break
+        steps += scan.to(i64)
         u = u32le(src, ip)
         h = _hash(u)
         cand = table.gather(1, h[:, None])[:, 0]
@@ -205,5 +215,5 @@ def encode_plain(data: torch.Tensor, lengths: torch.Tensor):
         skip = torch.where(hit, 32, skip)
 
     ok = op + 8 <= OUT_CAP
-    return (out[:, :OUT_CAP].contiguous(), op.clamp(max=OUT_CAP).to(torch.int32),
-            ok)
+    result = (out[:, :OUT_CAP].contiguous(), op.clamp(max=OUT_CAP).to(torch.int32), ok)
+    return result + (steps.to(torch.int32),) if with_steps else result

@@ -49,10 +49,16 @@ frames, and on a batch of 64 KB corpus chunks through the host encoder at
 level 3, as the zstd path gives them; the LZO and deflate kernels likewise,
 on synthetic, edge, malformed and 64 KB chunks; the DFAST matcher kernel on
 its edge cases and six 64 KB chunks, and the emission kernel on their
-plans; the xxHash kernels at nonzero seeds; the r2 Snappy decode kernel on
-45 rows in two groups of 32 (synthetic, malformed and 64 KB corpus blocks)
-at out_cap 65536 and 4096, steps included, and each row alone against its
-own count; the Snappy and LZ4 decode kernels with their step counts. Every
+plans; the xxHash kernels at nonzero seeds, and xxh64 at 1, 7 and 257
+rows of 64 KB and 65,531 B; the r2 Snappy decode kernel on 45 rows in two
+groups of 32 (synthetic, malformed and 64 KB corpus blocks) at out_cap
+65536 and 4096, steps included, and each row alone against its own count;
+both output windows of the Snappy decode kernel on its window cases (a 64
+KB dist-1 run, a 64 KB literal, copies at each window's reach +- 1) at
+out_cap 65536 and 4093, 257 and 793 rows of an odd width and each row
+alone; the step counts of the Snappy and LZ4 decode, the LZO and deflate
+decode and the Snappy and LZ4 encode kernels. It prints the share of the
+corpus's copies within each window's reach. Every
 byte and hash is checked against the originals and the port's host
 reference codecs. After the times it runs ``profiling.kernel_rows`` and a
 ``profiling.trace`` of both Snappy decode kernels, whose trace file must
@@ -130,6 +136,77 @@ R2_MALFORMED = [
     b"\x08\x0cabcd\x0f\x04\x00\x00\x01", b"\xfe\xff\xff\xff\x0f\x0cabcd",
     b"\x81\x80\x04\x0cabcd", b"\x80\x80\x80", b"\x05\xfc\xff\xff\xff\xff\x04abc"]
 R2_CORPUS_ROWS = [0, 1, 2, 3] + list(range(4, N_CHUNKS, 13))[:20]  # 24 corpus blocks
+
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while n >= 128:
+        out.append((n & 127) | 128)
+        n >>= 7
+    return bytes(out + bytes([n]))
+
+
+def snappy_literal(data: bytes) -> bytes:
+    """One Snappy literal token of data (1 to 2^32 bytes)."""
+    n = len(data) - 1
+    if n < 60:
+        return bytes([n << 2]) + data
+    extra = (n.bit_length() + 7) // 8
+    return bytes([(59 + extra) << 2]) + n.to_bytes(extra, "little") + data
+
+
+def snappy_copy(length: int, dist: int) -> bytes:
+    """One Snappy copy token with a 2-byte offset (length 1 to 64)."""
+    return bytes([2 | ((length - 1) << 2)]) + dist.to_bytes(2, "little")
+
+
+def snappy_window_cases() -> list[tuple[str, bytes]]:
+    """Hand-built Snappy blocks for the decode kernel's window and input
+    ring: a 64 KB run of dist-1 copies, one 64 KB literal, copies at dists
+    just below, at and just above each window's reach and size, and a mixed
+    block of literals (some longer than the input ring) and copies at every
+    kind of dist, up to 64 KB."""
+    from aircompressor_tpu_torch.ops.snappy_decode import WINDOWS, copy_reach
+
+    rng = np.random.default_rng(8)
+
+    def block(tokens: list[bytes], n: int) -> bytes:
+        return _varint(n) + b"".join(tokens)
+
+    def noise(n: int) -> bytes:
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+    cases = [("dist1-64k", block([snappy_literal(b"a")] + [snappy_copy(64, 1)] * 1023
+                                 + [snappy_copy(63, 1)], CHUNK)),
+             ("literal-64k", block([snappy_literal(noise(CHUNK))], CHUNK))]
+    for window in WINDOWS:
+        reach = copy_reach(window)
+        tokens, n = [snappy_literal(noise(window + 200))], window + 200
+        for dist in (reach - 1, reach, reach + 1, reach + 30, window - 1, window,
+                     window + 1, window + 63):
+            lit = noise(1 + dist % 7)
+            tokens += [snappy_literal(lit), snappy_copy(64, dist), snappy_copy(37, dist + 5),
+                       snappy_copy(9, 3)]
+            n += len(lit) + 64 + 37 + 9
+        cases.append((f"straddle-{window}", block(tokens, n)))
+    tokens, n = [snappy_literal(noise(100))], 100
+    while True:
+        if rng.random() < 0.3:
+            length = int(rng.integers(1, 200)) if rng.random() < 0.9 else int(rng.integers(600, 3000))
+            if n + length > CHUNK:
+                break
+            tokens.append(snappy_literal(noise(length)))
+        else:
+            length = int(rng.integers(4, 65))
+            near = [copy_reach(w) + int(rng.integers(-40, 40)) for w in WINDOWS]
+            dist = min(n, int(rng.choice([rng.integers(1, 64), rng.integers(64, 4032),
+                                          rng.integers(1, n + 1), *near])))
+            if n + length > CHUNK:
+                break
+            tokens.append(snappy_copy(length, max(dist, 1)))
+        n += length
+    cases.append(("mixed", block(tokens, n)))
+    return cases
 
 
 def generated_corpus() -> list[bytes]:
@@ -498,6 +575,89 @@ def paired_ms(kernel, plain, reps_kernel: int, reps_plain: int):
     k2 = time_ms(kernel, reps_kernel)
     p2 = time_ms(plain, reps_plain)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def steps_against_plain(name: str, kernel, plain, *args, **kw) -> int:
+    """Hold a kernel's ``with_steps`` results to its plain version's, all
+    four, and its first three to the kernel's own without steps; return the
+    largest count."""
+    k = kernel(*args, with_steps=True, **kw)
+    p = plain(*args, with_steps=True, **kw)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(k, p)):
+        require(torch.equal(a, b), f"{name} with_steps result {i} equals plain")
+    for i, (a, b) in enumerate(zip(k[:3], kernel(*args, **kw))):
+        require(torch.equal(a, b), f"{name} result {i} the same with and without steps")
+    return int(k[3].max())
+
+
+def snappy_window_against_plain(dev, blobs: list[bytes]) -> int:
+    """Hold both windows of the Snappy decode kernel to the plain version
+    with steps: the given blobs and the hand-built window cases tiled to 257
+    rows (the 32 KB window) and to SMALL_BATCH + 1 rows (the 4 KB window) of
+    an odd width, at out_cap 64 KB and 4093, and each distinct row alone;
+    return the max_abs_err."""
+    from aircompressor_tpu_torch.ops import snappy_decode
+    from aircompressor_tpu_torch.ops.batch import _pack, to_device_batch
+
+    blobs = blobs + [b for _, b in snappy_window_cases()]
+    n, err = len(snappy_window_cases()), 0
+    for rows in (257, snappy_decode.SMALL_BATCH + 1):
+        batch = (blobs * (rows // len(blobs) + 1))[:rows]
+        comp, lens = to_device_batch(*_pack(batch, max(map(len, batch)) | 1), dev)
+        for out_cap in (CHUNK, 4093):
+            p = snappy_decode.decode_plain(comp, lens, out_cap=out_cap, with_steps=True)
+            k = snappy_decode.decode(comp, lens, out_cap=out_cap, with_steps=True)
+            torch.cuda.synchronize()
+            require(out_cap < CHUNK or bool(p[2][len(blobs) - n:len(blobs)].all()),
+                    "the window cases decode ok")
+            for name, a, b in zip(("out", "out_lens", "ok", "steps"), k, p):
+                require(torch.equal(a, b), f"decode {name} equal plain at out_cap "
+                                           f"{out_cap}, {rows} rows")
+            err = max(err, int((k[0].int() - p[0].int()).abs().max()))
+            if rows == 257:
+                for i in range(len(blobs)):
+                    one = snappy_decode.decode(comp[i:i + 1], lens[i:i + 1], out_cap=out_cap,
+                                               with_steps=True)
+                    require(all(torch.equal(a[0], b[i]) for a, b in zip(one, p)),
+                            f"decode row {i} alone equals plain at out_cap {out_cap}")
+    print(f"snappy decode windows {snappy_decode.WINDOWS}: 257 and "
+          f"{snappy_decode.SMALL_BATCH + 1} rows of an odd width ({n} window cases: 64 KB "
+          f"dist-1 run, 64 KB literal, copies at each reach +- 1, mixed) and each of the "
+          f"{len(blobs)} rows alone, out_cap {CHUNK} and 4093, kernel == plain (out, "
+          f"out_lens, ok, steps), max_abs_err {err}")
+    return err
+
+
+def xxh64_batches_against_plain(dev) -> int:
+    """Hold the xxh64 kernel to its plain version at 1, 7 and 257 rows (1,
+    1 and 2 streams a warp) of 64 KB and 65,531 B, lengths -1, 0, 31, 32,
+    past the row and random, at every seed of the seed check; the first 7
+    rows to the host too. Return the max_abs_err."""
+    from aircompressor_tpu_torch.host.xxhash import xxh64 as host_xxh64
+    from aircompressor_tpu_torch.ops import xxhash
+
+    rng = np.random.default_rng(44)
+    err = 0
+    for width in (CHUNK, CHUNK - 5):
+        for b in (1, 7, 257):
+            host = rng.integers(0, 256, (b, width), dtype=np.uint8)
+            lens_list = ([-1, 0, 31, 32, width + 9, width, 65]
+                         + rng.integers(0, width, b, dtype=np.int64).tolist())[:b]
+            data = torch.from_numpy(host).to(dev)
+            lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+            for seed in (*XXH_SEEDS, (1 << 64) - 1):
+                k = [v & (2**64 - 1) for v in xxhash.xxh64(data, lens, seed).tolist()]
+                p = [v & (2**64 - 1) for v in xxhash.xxh64_plain(data, lens, seed).tolist()]
+                s = [host_xxh64(host[i, :min(max(n, 0), width)], seed)
+                     for i, n in enumerate(lens_list[:7])]
+                require(k == p and k[:7] == s, f"xxh64 kernel == plain == host at "
+                                               f"{b} rows of {width} B, seed {seed:#x}")
+                err = max([err] + [abs(x - y) for x, y in zip(k, p)])
+    print(f"xxh64: 1, 7 and 257 rows of {CHUNK} and {CHUNK - 5} B, lengths -1, 0, 31, 32, "
+          f"past the row and random, seeds {[hex(x) for x in XXH_SEEDS]} and 2^64-1: "
+          f"kernel == plain (== host on the first 7 rows), max_abs_err {err}")
+    return err
 
 
 def bound_ms(read_bytes: int, write_bytes: int) -> float:
@@ -1049,10 +1209,13 @@ def lzo_kernel_against_plain(dev) -> dict:
                     f"blocks: {edge}")
     n_full = len(corpus_full_cases())
     full = blobs[len(raws) - n_full:len(raws)]
+    top = steps_against_plain("lzo decode", lzo_decode.decode, lzo_decode.decode_plain,
+                              comp, lens, out_cap=LZO_EDGE_CAP)
     print(f"lzo decode: {len(blobs)} chunks ({want.count(None)} malformed; "
           f"{n_full} of 64 KB corpus chunks) at out_cap {CHUNK} and {LZO_EDGE_CAP}, "
           f"kernel == plain, max_abs_err {err}; edge blocks as the Pallas kernel; "
-          f"plain {t_plain:.2f} s (host clock, both caps)")
+          f"plain {t_plain:.2f} s (host clock, both caps); with_steps == plain "
+          f"(largest {top} commands)")
     return dict(err=err, full=full)
 
 
@@ -1110,6 +1273,10 @@ def deflate_kernel_against_plain(dev) -> dict:
         for i, r in enumerate(raws):
             require(k[0][i, :min(len(r), out_cap)].cpu().numpy().tobytes() == r[:out_cap],
                     f"deflate case {i} equals its original")
+    top = steps_against_plain("deflate decode", deflate_decode.decode,
+                              deflate_decode.decode_plain, comp, comp_lens, dplan,
+                              out_cap=4096)
+    print(f"deflate decode: with_steps == plain (largest {top} symbols)")
     codec = DeflateBatchCodec(device=dev)
     good_blobs = blobs[:3]
     for name, b in bad:
@@ -1442,6 +1609,7 @@ def main() -> None:
           f"malformed, kernel == plain, max_abs_err {decode_err}; with_steps on "
           f"{len(blobs_steps)} chunks == plain (out, out_lens, ok, steps; largest "
           f"{int(k_st[3].max())} tokens)")
+    decode_err = max(decode_err, snappy_window_against_plain(dev, blobs_steps))
 
     grid = list(range(36)) + [47, 48, 63, 64, 65, 100, 255, 256, 257, CHUNK]
     rng = np.random.default_rng(42)
@@ -1459,6 +1627,7 @@ def main() -> None:
         require(k_h == p_h == s_h, f"xxh64 kernel == plain == scalar at L={width}")
     print(f"xxh64: {2 * len(grid)} streams, kernel == plain == scalar, "
           f"max_abs_err {xxh_err}")
+    xxh_err = max(xxh_err, xxh64_batches_against_plain(dev))
 
     enc_cases = encode_cases()
     enc_buf, enc_lens = _pack(enc_cases, ENC_CUT)
@@ -1480,8 +1649,11 @@ def main() -> None:
     n_comp, n_clens, _ = snappy_encode.encode(*to_device_batch(noisy, enc_lens, dev))
     require(torch.equal(n_comp, k_comp) and torch.equal(n_clens, k_clens),
             "bytes past each length do not change the encode")
+    top = steps_against_plain("snappy encode", snappy_encode.encode,
+                              snappy_encode.encode_plain, *enc_in)
     print(f"snappy encode: {len(enc_cases)} chunks of <= {ENC_CUT} B, kernel == "
-          f"plain, max_abs_err {encode_err}, host decoder round trip ok")
+          f"plain, max_abs_err {encode_err}, host decoder round trip ok; with_steps == "
+          f"plain (largest {top} probes)")
 
     corpus = generated_corpus()
     full = full_cases(corpus)
@@ -1527,9 +1699,13 @@ def main() -> None:
     n_lz = lz4_encode.encode(*to_device_batch(noisy, lz4_full_lens, dev))
     require(all(torch.equal(a, b) for a, b in zip(n_lz, k_lz)),
             "bytes past each length do not change the LZ4 encode")
+    top = steps_against_plain("lz4 encode", lz4_encode.encode, lz4_encode.encode_plain,
+                              *enc_in)
     print(f"lz4 encode: {len(lz4_full)} chunks of <= {CHUNK} B at width {CHUNK}, "
           f"kernel == plain (comp, comp_lens, ok), max_abs_err {lz4_encode_err}; "
-          f"host decoder round trip ok; plain {t_lz_plain:.2f} s (host clock)")
+          f"host decoder round trip ok; plain {t_lz_plain:.2f} s (host clock); "
+          f"with_steps == plain on the {len(enc_cases)} chunks of <= {ENC_CUT} B "
+          f"(largest {top} probes)")
 
     lz4_raws = ([c for _, c in synthetic_cases()] + [lz4_length_edges_case()]
                 + [_selfcheck_payload(seed) for seed in (0xA1C0, 1)])
@@ -1699,6 +1875,12 @@ def main() -> None:
           f"and hashed in {t_big:.3f} s (host clock, first call)")
     print(f"device_fraction {device_fraction} ({rows} of {n_in} chunks through the "
           f"decode kernel, {n_in - rows} on the host); launches {counts}")
+    shares = snappy_decode.distance_shares(*to_device_batch(
+        *_pack(blobs, _round_up(max(map(len, blobs)), 16)), dev))
+    print(f"copy dists of the encoded corpus ({shares['copies']} copies, "
+          f"{shares['copy_bytes']} B): " + "; ".join(
+              f"within {reach}: {100 * v['copies']:.2f}% of copies, "
+              f"{100 * v['bytes']:.2f}% of their bytes" for reach, v in shares["within"].items()))
 
     print("== r2 decode path at real size (kernel #12 on the encoded corpus)", flush=True)
     r2_comp, r2_comp_lens = to_device_batch(
@@ -1978,7 +2160,7 @@ def main() -> None:
     kernels = [
         {"name": "snappy_decode", "route": "cuda",
          "source": "aircompressor_tpu_torch/csrc/snappy_decode.cu",
-         "replaces": "aircompressor_tpu/ops/snappy_pallas_w.py:70",
+         "replaces": "aircompressor_tpu/ops/snappy_pallas_w.py:70", "redesigned": "PR 8",
          "launches": counts["snappy_decode"], "max_abs_err": decode_err,
          "ms": dec_ms, "plain_ms": dec_plain_ms,
          "bound_ms": dec_bound(int(comp_lens.sum()), N_CHUNKS), "bound_by": "bytes",
@@ -1996,7 +2178,7 @@ def main() -> None:
          "tiled_bound_ms": dec_bound(comp_big_bytes, big_comp.shape[0])},
         {"name": "xxh64", "route": "cuda",
          "source": "aircompressor_tpu_torch/csrc/xxh64.cu",
-         "replaces": "aircompressor_tpu/ops/xxhash_pallas.py:40",
+         "replaces": "aircompressor_tpu/ops/xxhash_pallas.py:40", "redesigned": "PR 8",
          "launches": counts["xxh64"], "max_abs_err": xxh_err,
          "ms": xxh_ms, "plain_ms": xxh_plain_ms,
          "bound_ms": xxh_bound(raw256, N_CHUNKS), "bound_by": "bytes",

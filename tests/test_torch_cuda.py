@@ -35,8 +35,8 @@ from chip_smoke import (
     LZ4_EDGE_BLOCKS, LZO_EDGE_BLOCKS, LZO_EDGE_CAP, R2_MALFORMED, XXH_SEED_LENGTHS,
     XXH_SEEDS,
     backward_cap_case, deflate_cases, deflate_malformed_cases, dfast_cases,
-    lz4_length_edges_case, lz4_malformed_cases, lzo_cases, zstd_cases, zstd_full_cases,
-    zstd_malformed_cases)
+    lz4_length_edges_case, lz4_malformed_cases, lzo_cases, snappy_window_cases,
+    zstd_cases, zstd_full_cases, zstd_malformed_cases)
 
 pytestmark = pytest.mark.cuda
 
@@ -492,3 +492,90 @@ def test_kernel_rows_on_the_card(device):
         assert r["GBps"] > 0 and r["bound_ms"] > 0 and r["card"]
     for r in rows[:2]:
         assert r["chunks"] == 32 and r["loop_iterations"] >= r["longest_chain"] > 0
+
+
+def _window_blobs(synthetic) -> list[bytes]:
+    """The decode checks' blobs, the r2 malformed blobs and the hand-built
+    window cases: a 64 KB dist-1 run, a 64 KB literal, copies just inside
+    and outside each window's reach, a mixed block."""
+    _, blobs = _blobs(synthetic)
+    return blobs + R2_MALFORMED + [b for _, b in snappy_window_cases()]
+
+
+@pytest.mark.parametrize("rows", [257, snappy_decode.SMALL_BATCH + 1])
+@pytest.mark.parametrize("out_cap", [65536, 4093])
+def test_decode_kernel_window_cases(device, synthetic, rows, out_cap):
+    """Both windows of the redesigned decode (32 KB at 257 rows, 4 KB above
+    SMALL_BATCH) on rows of an odd width, with steps, and each row alone."""
+    blobs = _window_blobs(synthetic)
+    batch = (blobs * (rows // len(blobs) + 1))[:rows]
+    cap = max(map(len, batch)) | 1
+    comp, lens = to_device_batch(*_pack(batch, cap), device)
+    got = snappy_decode.decode(comp, lens, out_cap=out_cap, with_steps=True)
+    want = snappy_decode.decode_plain(comp, lens, out_cap=out_cap, with_steps=True)
+    for name, g, w in zip(("out", "out_lens", "ok", "steps"), got, want):
+        assert torch.equal(g, w), name
+    for g, w in zip(got, snappy_decode.decode(comp, lens, out_cap=out_cap)):
+        assert torch.equal(g, w)
+    for i in range(len(blobs)):  # B = 1
+        one = snappy_decode.decode(comp[i:i + 1], lens[i:i + 1], out_cap=out_cap,
+                                   with_steps=True)
+        for name, g, w in zip(("out", "out_lens", "ok", "steps"), one, want):
+            assert torch.equal(g[0], w[i]), (i, name)
+    ok = got[2].cpu().tolist()
+    assert sum(ok) >= len(snappy_window_cases()) and not all(ok)
+
+
+@pytest.mark.parametrize("width", [65536, 65531])
+@pytest.mark.parametrize("batch", [1, 7, 257])
+def test_xxh64_kernel_batches_and_widths(device, width, batch):
+    """Aligned and unaligned 64 KB rows, 1 to 257 of them (1 to 8 streams a
+    warp), lengths -1, 0, 31, 32, past the row and random; kernel == plain
+    at each seed of the seed test, and == the host for the first rows."""
+    rng = np.random.default_rng(width + batch)
+    host = rng.integers(0, 256, (batch, width), dtype=np.uint8)
+    lens = ([-1, 0, 31, 32, width + 9, width, 65]
+            + rng.integers(0, width, batch, dtype=np.int64).tolist())[:batch]
+    data = torch.from_numpy(host).to(device)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+    for seed in (*XXH_SEEDS, (1 << 64) - 1):
+        got = xxhash.xxh64(data, lengths, seed)
+        assert torch.equal(got, xxhash.xxh64_plain(data, lengths, seed)), seed
+        assert [v & (2**64 - 1) for v in got[:8].tolist()] == [
+            host_xxh64(host[i, :min(max(n, 0), width)], seed)
+            for i, n in enumerate(lens[:8])], seed
+
+
+@pytest.mark.parametrize("codec", ["lzo", "deflate", "snappy_encode", "lz4_encode"])
+def test_kernels_with_steps_equal_plain(device, synthetic, codec):
+    """The four kernels that gained a step count: kernel == plain on all
+    four outputs with steps on, and the three outputs as with steps off."""
+    if codec == "lzo":
+        raws = lzo_cases() + [_selfcheck_payload(s) for s in (1, 2)]
+        blobs = [host_lzo.compress(r) for r in raws] + [b for b, _, _ in LZO_EDGE_BLOCKS]
+        blobs.append(blobs[-len(LZO_EDGE_BLOCKS) - 1][:-3])  # the stop command cut off
+        args = to_device_batch(*_pack(blobs, max(map(len, blobs)) + 3), device)
+        run = lambda fn, **kw: fn(*args, out_cap=LZO_EDGE_CAP, **kw)  # noqa: E731
+        kernel, plain = lzo_decode.decode, lzo_decode.decode_plain
+    elif codec == "deflate":
+        blobs, _ = deflate_cases()
+        items = blobs + [b for _, b in deflate_malformed_cases()] + [blobs[-1]]
+        buf, lens = _pack(items, max(map(len, items)) + 3)
+        plan = deflate_decode.upload(deflate_plan.plan(buf, lens), device)
+        lens[-1] //= 2
+        comp, comp_lens = to_device_batch(buf, lens, device)
+        run = lambda fn, **kw: fn(comp, comp_lens, plan, **kw)  # noqa: E731
+        kernel, plain = deflate_decode.decode, deflate_decode.decode_plain
+    else:
+        mod = snappy_encode if codec == "snappy_encode" else lz4_encode
+        _, buf, _, lens = _encode_batch(synthetic, 6000)
+        args = to_device_batch(buf, lens, device)
+        run = lambda fn, **kw: fn(*args, **kw)  # noqa: E731
+        kernel, plain = mod.encode, mod.encode_plain
+    got = run(kernel, with_steps=True)
+    for g, w in zip(got, run(plain, with_steps=True)):
+        assert g.device.type == "cuda"
+        assert torch.equal(g, w)
+    for g, w in zip(got, run(kernel)):
+        assert torch.equal(g, w)
+    assert int(got[3].max()) > 0

@@ -277,3 +277,79 @@ def test_codec_rejects_a_chunk_over_max_chunk():
 
 def test_codec_defaults_to_the_card():
     assert DeflateBatchCodec().device.type == "cuda"
+
+
+LEN_EXTRA = [0] * 8 + [1] * 4 + [2] * 4 + [3] * 4 + [4] * 4 + [5] * 4 + [0]
+
+
+def _symbol_walk(blob: bytes) -> int:
+    """The symbol loop's iterations on a stream of stored and fixed-Huffman
+    blocks, by a walk of its bits: one per literal/length symbol (a length
+    with its distance is one), each end-of-block symbol included."""
+    pos = 0
+
+    def bits(n):  # n bits, least significant first
+        nonlocal pos
+        v = sum(((blob[(pos + k) >> 3] >> ((pos + k) & 7)) & 1) << k for k in range(n))
+        pos += n
+        return v
+
+    def code(n, v=0):  # n more bits of a Huffman code, most significant first
+        for _ in range(n):
+            v = (v << 1) | bits(1)
+        return v
+
+    count = 0
+    while True:
+        final, btype = bits(1), bits(2)
+        if btype == 0:
+            pos = (pos + 7) & ~7
+            n = bits(16)
+            pos += 16 + 8 * n
+        else:
+            assert btype == 1, "the walk knows fixed-Huffman blocks only"
+            while True:
+                count += 1
+                c = code(7)
+                if c <= 23:
+                    sym = 256 + c
+                else:
+                    c = code(1, c)
+                    if c <= 0xBF:
+                        sym = c - 0x30
+                    elif c <= 0xC7:
+                        sym = 280 + c - 0xC0
+                    else:
+                        sym = 144 + code(1, c) - 0x190
+                if sym == 256:
+                    break
+                if sym > 256:
+                    bits(LEN_EXTRA[sym - 257])
+                    d = code(5)
+                    bits(max(0, (d - 2) // 2))
+        if final:
+            return count
+
+
+def test_with_steps_counts_the_symbols_walked():
+    """``with_steps`` on the plain version: the symbol walk of fixed-Huffman
+    and stored streams, fewer steps for a stream cut after planning (its
+    failing symbol included), 0 for a rejected stream; the three outputs as
+    without steps."""
+    raws = [b"abc", b"abcabcabcabc", b"hello world hello world hello", b"x",
+            b"The quick brown fox jumps over the lazy dog. " * 4]
+    good = ([deflate_raw(r, level) for level in (1, 6) for r in raws]
+            + [deflate_raw(r, 0) for r in raws[:3]])
+    blobs = good + [good[-4], deflate_malformed_cases()[0][1]]
+    buf, lens = _batch(blobs)
+    plan = port_plan.plan(buf, lens)
+    lens[-2] = len(good[-4]) // 2
+    comp, comp_lens = to_device_batch(buf, lens, "cpu")
+    dplan = deflate_decode.upload(plan, "cpu")
+    *outs, steps = deflate_decode.decode(comp, comp_lens, dplan, with_steps=True)
+    walks = [_symbol_walk(b) for b in good]
+    assert steps.tolist()[:len(good)] == walks
+    assert walks[:2] == [4, 6] and walks[-3:] == [0, 0, 0]
+    assert 0 < steps[-2] < walks[-4] and steps[-1] == 0
+    for got, want in zip(outs, deflate_decode.decode(comp, comp_lens, dplan)):
+        assert torch.equal(got, want)

@@ -165,3 +165,60 @@ def test_codec_names_the_malformed_chunk():
 
 def test_codec_defaults_to_the_card():
     assert LzoBatchCodec().device.type == "cuda"
+
+
+def _command_walk(blob: bytes) -> int:
+    """The command loop's iterations on a well-formed block, by a walk of
+    its commands alone: one per command after the first-byte literal run,
+    the stop command included."""
+    ip, state, count = 0, 0, 0
+    if blob[0] > 17:
+        ip, state = blob[0] - 16, min(blob[0] - 17, 4)
+
+    def extended(p):  # a zero-extended length at p: (its value, the position after)
+        z = p
+        while blob[z] == 0:
+            z += 1
+        return 255 * (z - p) + blob[z], z + 1
+
+    while True:
+        count += 1
+        t = blob[ip]
+        if t < 16 and state == 0:  # literal run
+            if t == 0:
+                n, p = extended(ip + 1)
+                n += 18
+            else:
+                n, p = t + 3, ip + 1
+            ip, state = p + n, 4
+            continue
+        if t < 16 or t >= 64:  # 2-byte match commands
+            trailing, ip = t & 3, ip + 2
+        else:  # M3 and M4: a length, then a 2-byte word
+            low = t & 7 if t < 32 else t & 31
+            w = extended(ip + 1)[1] if low == 0 else ip + 1
+            word = blob[w] | (blob[w + 1] << 8)
+            if t < 32 and not t & 8 and word >> 2 == 0:  # dist 16384: stop
+                return count
+            trailing, ip = word & 3, w + 2
+        ip += trailing
+        state = trailing
+
+
+def test_with_steps_counts_the_commands_walked():
+    """``with_steps`` on the plain version: the command walk of each
+    well-formed block, the same with its stop command cut off (then a
+    failing iteration), 1 for a first-byte literal run and a stop, 0 for an
+    empty chunk; the three outputs as without steps."""
+    good = [host_lzo.compress(r) for r in INPUTS + [_selfcheck_payload(5)[:20000]]]
+    walks = [_command_walk(b) for b in good]
+    long = [i for i, w in enumerate(walks) if w > 2][:3]
+    blobs = good + [good[i][:-3] for i in long] + [
+        bytes([21]) + b"abcd" + b"\x11\x00\x00", bytes([21]) + b"abcd", b""]
+    buf, lens = _pack(blobs, max(map(len, blobs)) + 3)
+    comp, comp_lens = to_device_batch(buf, lens, "cpu")
+    *outs, steps = lzo_decode.decode(comp, comp_lens, with_steps=True)
+    assert steps.tolist() == walks + [walks[i] for i in long] + [1, 1, 0]
+    assert len(long) == 3 and max(walks) > 50
+    for got, want in zip(outs, lzo_decode.decode(comp, comp_lens)):
+        assert torch.equal(got, want)

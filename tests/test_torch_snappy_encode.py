@@ -116,3 +116,43 @@ def test_encode_rejects_bad_arguments():
         torch.zeros((0, 16), dtype=torch.uint8), torch.zeros(0, dtype=torch.int32))
     assert comp.shape == (0, snappy_encode.OUT_CAP)
     assert comp_lens.shape == ok.shape == (0,)
+
+
+def _probe_walk(raw: bytes) -> int:
+    """The match-search loop's iterations, by a scalar walk of the matcher:
+    one per probe of the scan, a hit with its match being one."""
+    def u32(p):
+        return int.from_bytes(raw[p:p + 4], "little")
+
+    def hash_at(p):
+        return ((u32(p) * 0x1E35A7BD) & 0xFFFFFFFF) >> 18
+
+    n, table, ip, skip, count = len(raw), {}, 0, 32, 0
+    while ip < n - 15:
+        count += 1
+        cand = table.get(hash_at(ip), -1)
+        table[hash_at(ip)] = ip
+        if cand < 0 or u32(cand) != u32(ip):
+            ip, skip = ip + (skip >> 5), skip + 1
+            continue
+        m = 4
+        while ip + m < n and raw[ip + m] == raw[cand + m]:
+            m += 1
+        ip, skip = ip + m, 32
+        table[hash_at(ip - 1)] = ip - 1
+    return count
+
+
+def test_with_steps_counts_the_probes_walked():
+    """``with_steps`` on the plain version: the probe walk of each chunk
+    (5 for ``abcd`` repeated: four misses, then a hit to the end; none for
+    a chunk under 16 bytes); the three outputs as without steps."""
+    raws = _small_cases() + [b"abcd" * 10, b"x" * 15, _selfcheck_payload(4)[:6000]]
+    buf, lens = _pack(raws, 6000)
+    data, lengths = to_device_batch(buf, lens, "cpu")
+    *outs, steps = snappy_encode.encode(data, lengths, with_steps=True)
+    walks = [_probe_walk(r) for r in raws]
+    assert steps.tolist() == walks
+    assert walks[-3:-1] == [5, 0] and walks[-1] > 100
+    for got, want in zip(outs, snappy_encode.encode(data, lengths)):
+        assert torch.equal(got, want)

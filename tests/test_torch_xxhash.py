@@ -138,3 +138,61 @@ def test_xxh32_takes_a_seed(seed):
                                        seed=seed)).tolist()
     assert got == want
     assert got == [host_xxhash.xxh32(data[i, :n], seed) for i, n in enumerate(lengths)]
+
+
+def _lanes_then_merge(row: bytes, seed: int) -> int:
+    """XXH64 as the kernel computes it: four accumulators, each over its own
+    8 bytes of every stripe and computed apart from the others (one lane
+    each), then one lane's merge, tail and avalanche in the reference's
+    order."""
+    def rotl(x, r):
+        return ((x << r) | (x >> (64 - r))) & M64
+
+    def rnd(acc, lane):
+        return rotl((acc + lane * xxhash.P64_2) & M64, 31) * xxhash.P64_1 & M64
+
+    def le(at, n):
+        return int.from_bytes(row[at:at + n], "little")
+
+    p1, p2 = xxhash.P64_1 & M64, xxhash.P64_2 & M64
+    n, stripes = len(row), len(row) // 32
+    inits = [seed + p1 + p2, seed + p2, seed, seed - p1]
+    v = []
+    for j in range(4):  # one lane's accumulator, alone
+        acc = inits[j] & M64
+        for s in range(stripes):
+            acc = rnd(acc, le(32 * s + 8 * j, 8))
+        v.append(acc)
+    if n >= 32:
+        h = (rotl(v[0], 1) + rotl(v[1], 7) + rotl(v[2], 12) + rotl(v[3], 18)) & M64
+        for acc in v:
+            h = ((h ^ rnd(0, acc)) * p1 + (xxhash.P64_4 & M64)) & M64
+    else:
+        h = (seed + (xxhash.P64_5 & M64)) & M64
+    h = (h + n) & M64
+    off = 32 * stripes
+    while off + 8 <= n:
+        h = (rotl(h ^ rnd(0, le(off, 8)), 27) * p1 + (xxhash.P64_4 & M64)) & M64
+        off += 8
+    if off + 4 <= n:
+        h = (rotl(h ^ (le(off, 4) * p1 & M64), 23) * p2 + (xxhash.P64_3 & M64)) & M64
+        off += 4
+    while off < n:
+        h = rotl(h ^ (row[off] * (xxhash.P64_5 & M64) & M64), 11) * p1 & M64
+        off += 1
+    h ^= h >> 33
+    h = h * p2 & M64
+    h ^= h >> 29
+    h = h * (xxhash.P64_3 & M64) & M64
+    return h ^ (h >> 32)
+
+
+@pytest.mark.parametrize("seed", [0, 0x9E3779B1])
+def test_four_accumulators_merged_as_the_kernel_merges_them(seed):
+    """Lengths 0-65 and 65,536: the kernel's split of the stripe loop over
+    four lanes, merged by one, equals ``xxh64_plain``."""
+    lens = list(range(66)) + [65536]
+    data, lengths = _batch(65536, lens, 46)
+    plain = _u64(xxhash.xxh64_plain(torch.from_numpy(data), torch.from_numpy(lengths), seed))
+    assert [_lanes_then_merge(data[i, :n].tobytes(), seed)
+            for i, n in enumerate(lengths)] == plain
