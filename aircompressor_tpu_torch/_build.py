@@ -53,7 +53,7 @@ _SIGNATURES = {
     "acx_zstd_execute": [_P, _L, _P, _L, _P, _P, _P, _I, _P, _I, _P, _P, _P],
     "acx_lzo_decode": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P],
     "acx_deflate_decode": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P],
-    "acx_zstd_dfast": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "acx_zstd_dfast": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "acx_zstd_emit": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
 }
 # C++ host entry -> argument types; each returns nothing.

@@ -32,33 +32,117 @@
 // end-of-block symbol and the failing one included; stored blocks add none.
 // A null `steps` writes nothing more.
 //
-// Design: the lanes of a warp walk the symbol chain together, each keeping
-// the same 64-bit bit buffer (every lane loads the same byte or entry, one
-// transaction), so control flow never diverges. Lane 0 writes a literal at
-// once. A copy is shared by the 32 lanes as out[op+k] = out[op-dist + k %
-// dist], exact for overlapping copies and reading only bytes before op; a
-// stored block is copied by the 32 lanes. __syncwarp() before and after a
-// copy makes the bytes written before it visible. Stores at or past out_cap
-// are dropped; every byte below out_cap is still exact.
+// Design. One warp decodes one chunk; the lanes walk the symbol chain
+// together with the same bit buffer, so control flow never diverges. Each
+// warp keeps three things in shared memory:
+// - Table slot (kSlot = 1280 entries). At each Huffman block the warp copies
+//   entries [lo, lo + kSlot) of the chunk's tables, lo the lower of the two
+//   roots, entries outside the chunk's as 0, so root lookups read shared
+//   memory with no bounds check (a fixed block's two roots take 1024; a
+//   dynamic block's two roots and the literal/length subtables up to 256
+//   more). A subtable entry outside the slot reads device memory, bounds
+//   checked. A block whose roots do not both fit reads all its tables from
+//   device memory, bounds checked, in a second instantiation of the loop.
+// - Input ring (kRing bytes, four quarters). Quarters arrive by cp.async,
+//   two ahead of the one being read, from the block's first byte on (the
+//   ring restarts at each Huffman block); bytes at or past the chunk's
+//   length arrive as 0. The 64-bit bit buffer refills with one unaligned
+//   64-bit read from the ring, branch-free, beside the root lookup of the
+//   same symbol, whenever fewer than 32 bits are left (the lookup needs 15,
+//   a literal takes at most 15). Bit positions are 32-bit counts from the
+//   block's first bit.
+// - Output window (kWindow bytes) holding the most recent output. Literals
+//   and copies write into it; a copy with dist <= kWindow - 258 reads its
+//   source there, byte k of it from k mod dist; a farther one reads device
+//   memory. The window drains with 16-byte stores (bytes where a row's edge
+//   cuts a unit) once kFlush bytes wait, so at every step fewer than kFlush
+//   wait and a step adds at most 258 (a longer copy or stored block goes in
+//   pieces): kFlush + 258 <= kWindow keeps every undrained byte, and
+//   kFlush <= kWindow - 514 puts a far copy's source in device memory. The
+//   zero tail is stored the same way; bytes at or past out_cap never are.
+// A literal whose bits end inside the chunk and whose byte lies below
+// out_cap with no drain due goes around a tight loop: the root lookup (the
+// slot's entries were validated when it was filled), the refill when due,
+// the byte stored by every lane (the same byte to the same address, so no
+// lane branches off), with the slot's and the window's shared-memory bases
+// held in registers. Every other symbol takes the general step.
+// Two instantiations, picked by the batch: up to 660 chunks (5 an SM),
+// 1-warp blocks with a 32 KB window (all but the farthest 258 distances);
+// above, 4-warp blocks with a 1 KB window and a 512-byte ring, 6.5 KB a
+// warp, so 4096 chunks run in one wave.
 //
 // What bounds it on this card: each symbol's lookup depends on the bit
-// position the one before left, so one chunk is a serial chain of dependent
-// table loads (L1-resident: a block's root tables are 4 KB); the card is
-// filled only by the chunks in flight (one warp each). Left for later:
-// staging the tables and the output in shared memory, and decoding several
-// literals a step.
+// position the one before left, so one chunk is a serial chain; a literal
+// now costs one shared-memory read, a refill every few literals, a couple
+// of dozen dependent instructions and no device-memory trip. A one-wave
+// batch takes as long as its longest chain; at 32 warps an SM the
+// instructions they issue bound it. Issuing the next literal's lookup
+// before the store of this one measured slower. Left for later: several
+// literals a step (a lookup at each of 32 bit offsets and a
+// pointer-doubling walk by shuffles).
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
 constexpr int kMaxOut = 65536;
 constexpr int kRootBits = 9;
+constexpr int kRootSize = 1 << kRootBits;
+constexpr int kSlot = 1280;      // table entries a warp keeps in shared memory
+constexpr int kMaxPiece = 258;   // output bytes a copy step adds
+constexpr int kSmallBatchChunks = 660;  // 5 chunks an SM on 132 SMs
 constexpr int OP_LIT = 1, OP_LEN = 2, OP_DIST = 3, OP_EOB = 4, OP_SUB = 5;
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
+// A table entry as a lookup may use it: 0 for op 0, no bits or more than 15.
+__device__ __forceinline__ int32_t valid_entry(int32_t e) {
+  const int nbits = (e >> 22) & 63;
+  return (e >> 28) == 0 || nbits == 0 || nbits > 15 ? 0 : e;
+}
+
+// Shared-memory accesses at a 32-bit address held in a register: the hot
+// loop keeps its bases there instead of rebuilding them each symbol.
+__device__ __forceinline__ unsigned opaque_smem_addr(const void* p) {
+  unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("" : "+r"(a));
+  return a;
+}
+
+__device__ __forceinline__ int32_t lds32(unsigned a) {
+  int32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(v) : "r"(a));
+  return v;
+}
+
+__device__ __forceinline__ void sts8(unsigned a, int32_t v) {
+  asm volatile("st.shared.u8 [%0], %1;" ::"r"(a), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <int kWindow, int kRing, int kWarps, int kMinBlocks>
+__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
 deflate_decode_kernel(const uint8_t* __restrict__ comp,
                       const int32_t* __restrict__ comp_lens, int batch, int cap,
                       const int32_t* __restrict__ desc,
@@ -66,9 +150,25 @@ deflate_decode_kernel(const uint8_t* __restrict__ comp,
                       const int32_t* __restrict__ index, uint8_t* out,
                       int32_t* __restrict__ out_lens, uint8_t* __restrict__ ok,
                       int out_cap, int32_t* __restrict__ steps) {
+  constexpr int kQuarter = kRing / 4;
+  constexpr int kReach = kWindow - kMaxPiece;  // farthest dist read from the window
+  constexpr int kFlush = kWindow >= 4096 ? kWindow / 2 : kWindow / 4;
+  static_assert(kFlush + kMaxPiece <= kWindow && kFlush <= kWindow - 2 * kMaxPiece + 2,
+                "window rules");
+  static_assert(kQuarter % 16 == 0 && kQuarter / 16 <= 32, "a quarter is one unit a lane");
+  // Indexed as arrays, not through pointers, so that every access is a
+  // plain shared-memory load or store at a fixed base.
+  __shared__ int32_t slots[kWarps][kSlot];
+  __shared__ __align__(16) uint8_t rings[kWarps][kRing];
+  __shared__ __align__(16) uint8_t wins[kWarps][kWindow];
+
+  const int warp = kWarps == 1 ? 0 : static_cast<int>(threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  const int chunk = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int chunk = blockIdx.x * kWarps + warp;
   if (chunk >= batch) return;  // the same for every lane of the warp
+  int32_t(&slot)[kSlot] = slots[warp];
+  uint8_t(&ring)[kRing] = rings[warp];
+  uint8_t(&win)[kWindow] = wins[warp];
   const uint8_t* src = comp + static_cast<size_t>(chunk) * cap;
   uint8_t* dst = out + static_cast<size_t>(chunk) * out_cap;
   const int clen = comp_lens[chunk];
@@ -78,46 +178,236 @@ deflate_decode_kernel(const uint8_t* __restrict__ comp,
   const int n_tab = index[4 * chunk + 3];
   const long long end_bit = 8LL * clen;
 
-  // The bit buffer: bits at or past byte clen read as 0.
-  unsigned long long buf = 0;
-  int nbuf = 0;
-  long long next_byte = 0;
-  auto refill = [&]() {
-    while (nbuf <= 56) {
-      const int b = next_byte < clen ? src[next_byte] : 0;
-      buf |= static_cast<unsigned long long>(b) << nbuf;
-      ++next_byte;
-      nbuf += 8;
+  // Ring coordinates: P = byte + sr, so P % 16 == 0 is a 16-byte boundary
+  // of device memory; window coordinates likewise with so.
+  const int sr = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+  const int so = static_cast<int>(reinterpret_cast<uintptr_t>(dst) & 15);
+  const uint8_t* src16 = src - sr;
+  uint8_t* dst16 = dst - so;
+  const int in_end = sr + max(0, min(clen, cap));  // ring coordinate of the input's end
+  auto wslot = [&](int pos) -> int { return (pos + so) & (kWindow - 1); };
+
+  // Quarter q of the ring: lane u fills the 16-byte unit u of it, by
+  // cp.async where the unit lies inside the input, else by bytes (0 past it).
+  int issued = 0, ready = 0;
+  auto issue = [&]() {
+    if (lane < kQuarter / 16) {
+      const int lo = issued * kQuarter + 16 * lane;
+      uint8_t* to = &ring[lo & (kRing - 1)];
+      if (lo >= sr && lo + 16 <= in_end) {
+        cp_async16(to, src16 + lo);
+      } else {
+        for (int i = 0; i < 16; ++i) {
+          const int p = lo + i;
+          to[i] = p >= sr && p < in_end ? src16[p] : 0;
+        }
+      }
+    }
+    cp_async_commit();  // one group per quarter
+    ++issued;
+  };
+  auto need = [&](int end) {  // ring bytes below coordinate `end` are ready
+    while (ready * kQuarter < end) {
+      cp_async_wait_all_but_one();
+      __syncwarp();
+      ++ready;
+      issue();
     }
   };
-  auto take = [&](int k) -> int {
-    const int v = static_cast<int>(buf & ((1ull << k) - 1));
-    buf >>= k;
-    nbuf -= k;
-    return v;
-  };
-  auto bit_pos = [&]() -> long long { return 8 * next_byte - nbuf; };
-  auto entry = [&](int i) -> int32_t { return i >= 0 && i < n_tab ? tab[i] : 0; };
-  // One symbol's entry at the bit position, and its code consumed; 0 for
-  // an entry of op 0, with no bits or with more than 15 (no code is longer).
-  auto lookup = [&](int root) -> int32_t {
-    refill();
-    const int peek = static_cast<int>(buf & 0x7FFF);
-    int32_t e = entry(root + (peek & ((1 << kRootBits) - 1)));
-    if ((e >> 28) == OP_SUB) {
-      const int sbits = min((e >> 22) & 63, 15 - kRootBits);
-      e = entry((e & 0x3FFFFF) + ((peek >> kRootBits) & ((1 << sbits) - 1)));
-    }
-    const int nbits = (e >> 22) & 63;
-    if ((e >> 28) == 0 || nbits == 0 || nbits > 15) return 0;
-    take(nbits);
-    return e;
+  auto ring64 = [&](int p) -> uint64_t {  // ring bytes p..p+7
+    const int a = p & ~7;
+    const uint64_t lo = *reinterpret_cast<const uint64_t*>(&ring[a & (kRing - 1)]);
+    const uint64_t hi = *reinterpret_cast<const uint64_t*>(&ring[(a + 8) & (kRing - 1)]);
+    const int sh = 8 * (p & 7);
+    return sh ? (lo >> sh) | (hi << (64 - sh)) : lo;
   };
 
+  // Device-memory stores of window bytes [a, b) (b <= out_cap), or zeros.
+  auto store = [&](int a, int b, bool zeros) {
+    const int ap = a + so, bp = b + so;
+    for (int u = (ap >> 4) + lane; u < ((bp + 15) >> 4); u += 32) {
+      const int lo = max(u << 4, ap), hi = min((u << 4) + 16, bp);
+      if (hi - lo == 16) {
+        reinterpret_cast<uint4*>(dst16)[u] =
+            zeros ? make_uint4(0, 0, 0, 0)
+                  : *reinterpret_cast<const uint4*>(&win[(u << 4) & (kWindow - 1)]);
+      } else {
+        for (int p = lo; p < hi; ++p) dst16[p] = zeros ? 0 : win[p & (kWindow - 1)];
+      }
+    }
+  };
+  int op = 0;
+  int flushed = 0;  // output bytes below this are in device memory (or >= out_cap)
+  int drain_at = kFlush;  // op that starts the next drain; none once out_cap is stored
+  int fast_end = min(drain_at, out_cap);  // a literal at op + 1 < fast_end needs no check
+  auto drain = [&]() {  // after a __syncwarp()
+    if (op >= drain_at) {
+      const int lim = op >= out_cap ? out_cap : ((op + so) & ~15) - so;
+      store(flushed, lim, false);
+      flushed = lim;
+      drain_at = flushed < out_cap ? flushed + kFlush : INT_MAX;
+      fast_end = min(drain_at, out_cap);
+      __syncwarp();
+    }
+  };
+  // A copy of len bytes from dist back, in pieces of at most kMaxPiece.
+  auto copy = [&](int len, int dist) {
+    __syncwarp();  // the literals stored before are visible to every lane
+    const int r0 = dist < kMaxPiece ? lane % dist : lane;
+    const int step = dist < kMaxPiece ? 32 % dist : 32;
+    while (len > 0) {
+      const int piece = min(len, kMaxPiece);
+      if (dist <= kReach) {  // from the window: reads only bytes before op
+        int r = r0;
+        for (int k = lane; k < piece; k += 32) {
+          win[wslot(op + k)] = win[wslot(op - dist + (dist >= piece ? k : r))];
+          r += step;
+          if (r >= dist) r -= dist;
+        }
+      } else {  // from device memory: dist > piece, drained bytes
+        for (int k = lane; k < piece; k += 32)
+          if (op + k < out_cap) win[wslot(op + k)] = dst[op - dist + k];
+      }
+      op += piece;
+      len -= piece;
+      __syncwarp();
+      drain();
+    }
+  };
+
+  long long slot_lo = LLONG_MIN;  // the table index slot[0] holds; none yet
   bool err = clen <= 0 || clen > cap;
   bool done = false;
-  int op = 0;
   int count = 0;
+
+  // One Huffman block from bit d1 (0 <= d1 < end_bit), roots read from the
+  // slot (kInSlot) or from device memory.
+  auto huffman = [&](auto in_slot, int d1, int ll_root, int d_root, bool last) {
+    constexpr bool kInSlot = decltype(in_slot)::value;
+    auto entry = [&](unsigned i) -> int32_t {  // device memory, bounds checked
+      return i < static_cast<unsigned>(n_tab) ? __ldg(tab + i) : 0;
+    };
+    // A root's entries: slot offsets, or table indices (root + bits as the
+    // plan's int64 sum: negative or past n_tab reads 0).
+    const int ll_base = kInSlot ? static_cast<int>(ll_root - slot_lo) : ll_root;
+    const int d_base = kInSlot ? static_cast<int>(d_root - slot_lo) : d_root;
+    auto root_entry = [&](int base, int bits) -> int32_t {
+      if constexpr (kInSlot) {
+        return slot[base + bits];  // the slot's entries are valid_entry()'s already
+      } else {
+        return valid_entry(entry(static_cast<unsigned>(base) + static_cast<unsigned>(bits)));
+      }
+    };
+    // The entry of the symbol at the buffer's low 15 bits, through its
+    // subtable where the root sends it there. Consumes nothing.
+    auto resolve = [&](int32_t e, uint64_t bits) -> int32_t {
+      if ((e >> 28) == OP_SUB) {
+        const int sbits = min((e >> 22) & 63, 15 - kRootBits);
+        const int i = (e & 0x3FFFFF) + static_cast<int>((bits >> kRootBits) & ((1u << sbits) - 1));
+        if constexpr (kInSlot) {
+          const long long off = i - slot_lo;
+          e = off >= 0 && off < kSlot ? slot[off] : entry(i);
+        } else {
+          e = entry(i);
+        }
+        e = valid_entry(e);
+      }
+      return e;
+    };
+
+    // The bit buffer: nbuf valid bits of buf, then the ring from bytepos.
+    cp_async_wait_all();
+    __syncwarp();
+    int bytepos = (d1 >> 3) + sr;
+    issued = ready = bytepos / kQuarter;
+    issue();
+    issue();
+    uint64_t buf = 0;
+    int nbuf = 0;
+    auto refill = [&]() {  // at least 56 valid bits after it
+      need(bytepos + 8);
+      buf |= ring64(bytepos) << nbuf;
+      bytepos += (63 - nbuf) >> 3;
+      nbuf |= 56;
+    };
+    auto consume = [&](int k) {
+      buf >>= k;
+      nbuf -= k;
+    };
+    refill();
+    consume(d1 & 7);
+    // Bits left before the chunk's end; a symbol that takes it below 0 ends past it.
+    int avail = static_cast<int>(min(end_bit - d1, static_cast<long long>(INT_MAX)));
+    const unsigned ll_at = kInSlot ? opaque_smem_addr(&slot[ll_base]) : 0;
+    const unsigned win_at = opaque_smem_addr(&win[0]);
+    // At the loop's top at least 15 bits are in the buffer: the lookup's.
+    while (true) {
+      // Literals whose bits stay inside the chunk and whose byte needs no
+      // check (below out_cap and 64 KB, no drain due) go around this loop;
+      // every lane stores the same byte, so no lane branches off.
+      int32_t e0;
+      while (true) {
+        const int bits = static_cast<int>(buf) & (kRootSize - 1);
+        e0 = kInSlot ? lds32(ll_at + 4 * bits) : root_entry(ll_base, bits);
+        if (nbuf < 32) refill();  // beside the lookup; >= 17 bits are left after a literal
+        const int nb = (e0 >> 22) & 63;
+        if ((e0 >> 28) != OP_LIT || avail < nb || op + 1 >= fast_end) break;
+        ++count;
+        consume(nb);
+        avail -= nb;
+        sts8(win_at + wslot(op), e0);
+        ++op;
+      }
+      ++count;
+      const int32_t e = resolve(e0, buf);
+      const int sym_op = e >> 28;
+      const int val = e & 0x3FFFFF;
+      const int nb = (e >> 22) & 63;
+      consume(nb);
+      avail -= nb;
+      if (sym_op == OP_LIT) {
+        err = avail < 0 || op + 1 > kMaxOut;
+        if (err) break;
+        if (op < out_cap) win[wslot(op)] = static_cast<uint8_t>(val);
+        ++op;
+        if (op >= drain_at) {
+          __syncwarp();
+          drain();
+        }
+        continue;
+      }
+      if (sym_op == OP_EOB) {
+        err = avail < 0;
+        done = last;
+        break;
+      }
+      err = sym_op != OP_LEN;  // op 0, a distance or a subtable
+      if (err) break;
+      const int lx = (val >> 9) & 15;
+      const int len = (val & 511) + static_cast<int>(buf & ((1u << lx) - 1));
+      consume(lx);
+      avail -= lx;
+      err = avail < 0;
+      if (err) break;
+      refill();
+      const int32_t de = resolve(root_entry(d_base, static_cast<int>(buf) & (kRootSize - 1)), buf);
+      err = (de >> 28) != OP_DIST;
+      if (err) break;
+      const int dval = de & 0x3FFFFF;
+      const int dnb = (de >> 22) & 63;
+      const int dx = (dval >> 16) & 15;
+      consume(dnb);
+      const int dist = (dval & 0xFFFF) + static_cast<int>(buf & ((1u << dx) - 1));
+      consume(dx);
+      avail -= dnb + dx;
+      err = avail < 0 || dist <= 0 || dist > op || op + len > kMaxOut;
+      if (err) break;
+      refill();
+      copy(len, dist);
+    }
+    __syncwarp();
+  };
+
   for (int blk = 0; !err && !done; ++blk) {
     if (blk >= n_blocks) {
       err = true;
@@ -125,73 +415,82 @@ deflate_decode_kernel(const uint8_t* __restrict__ comp,
     }
     const int32_t* d = blocks + 8 * blk;
     const bool last = d[6] != 0;
-    if (d[0] == 0) {  // stored
+    if (d[0] == 0) {  // stored: in pieces, through the window
       const int from = d[4], n = d[5];
       err = from < 0 || n < 0 || from > clen - n || op + n > kMaxOut;
       if (err) break;
-      const int n_store = min(n, out_cap - op);
-      for (int k = lane; k < n_store; k += 32) dst[op + k] = src[from + k];
-      op += n;
       __syncwarp();
+      for (int at = 0; at < n; at += kWindow - kFlush) {
+        const int piece = min(n - at, kWindow - kFlush);
+        for (int k = lane; k < piece; k += 32)
+          if (op + k < out_cap) win[wslot(op + k)] = src[from + at + k];
+        op += piece;
+        __syncwarp();
+        drain();
+      }
       done = last;
       continue;
     }
-    const int ll_root = d[2], d_root = d[3];
-    err = d[1] < 0;
+    const int d1 = d[1];
+    err = d1 < 0;
     if (err) break;
-    next_byte = d[1] >> 3;
-    buf = 0;
-    nbuf = 0;
-    refill();
-    take(d[1] & 7);
-    while (true) {
+    if (d1 >= end_bit) {  // its first symbol ends past the chunk
       ++count;
-      const int32_t e = lookup(ll_root);
-      const int sym_op = e >> 28;
-      const int val = e & 0x3FFFFF;
-      if (sym_op == OP_LIT) {
-        err = bit_pos() > end_bit || op + 1 > kMaxOut;
-        if (err) break;
-        if (lane == 0 && op < out_cap) dst[op] = static_cast<uint8_t>(val);
-        ++op;
-        continue;
-      }
-      if (sym_op == OP_EOB) {
-        err = bit_pos() > end_bit;
-        done = last;
-        break;
-      }
-      err = sym_op != OP_LEN;  // op 0, a distance or a subtable
-      if (err) break;
-      refill();
-      const int len = (val & 511) + take((val >> 9) & 15);
-      err = bit_pos() > end_bit;
-      if (err) break;
-      const int32_t de = lookup(d_root);
-      err = (de >> 28) != OP_DIST;
-      if (err) break;
-      const int dval = de & 0x3FFFFF;
-      refill();
-      const int dist = (dval & 0xFFFF) + take((dval >> 16) & 15);
-      err = bit_pos() > end_bit || dist <= 0 || dist > op || op + len > kMaxOut;
-      if (err) break;
-      __syncwarp();  // lane 0's literals are visible to the copy
-      const int n_store = min(len, out_cap - op);
-      const uint8_t* from = dst + (op - dist);
-      for (int k = lane; k < n_store; k += 32)
-        dst[op + k] = from[dist >= n_store ? k : k % dist];
-      op += len;
-      __syncwarp();
+      err = true;
+      break;
     }
-    __syncwarp();
+    const long long r1 = d[2], r2 = d[3];
+    const long long lo = min(r1, r2);
+    if (max(r1, r2) + kRootSize <= lo + kSlot) {
+      if (lo != slot_lo) {  // fill the slot: entries outside the chunk's read as 0
+        __syncwarp();
+#pragma unroll 8
+        for (int i = lane; i < kSlot; i += 32) {
+          const long long t = lo + i;
+          const int32_t e = t >= 0 && t < n_tab ? __ldg(tab + t) : 0;
+          slot[i] = (e >> 28) == OP_SUB ? e : valid_entry(e);
+        }
+        slot_lo = lo;
+        __syncwarp();
+      }
+      huffman(Flag<true>{}, d1, d[2], d[3], last);
+    } else {
+      huffman(Flag<false>{}, d1, d[2], d[3], last);
+    }
   }
 
-  for (int j = max(0, min(op, out_cap)) + lane; j < out_cap; j += 32) dst[j] = 0;
+  // The rest of the row: what the window still holds, then the zero tail.
+  __syncwarp();
+  if (op < out_cap) {
+    const int unit_end = min(((op + so + 15) & ~15) - so, out_cap);
+    for (int p = op + lane; p < unit_end; p += 32) win[wslot(p)] = 0;
+    __syncwarp();
+    store(flushed, unit_end, false);
+    store(unit_end, out_cap, true);
+  } else if (flushed < out_cap) {
+    store(flushed, out_cap, false);
+  }
+  cp_async_wait_all();
   if (lane == 0) {
     out_lens[chunk] = op;
     ok[chunk] = !err && done;
     if (steps != nullptr) steps[chunk] = count;
   }
+}
+
+template <int kWindow, int kRing, int kWarps, int kMinBlocks>
+cudaError_t launch(const uint8_t* comp, const int32_t* comp_lens, int batch, int cap,
+                   const int32_t* desc, const int32_t* tabs, const int32_t* index,
+                   uint8_t* out, int32_t* out_lens, uint8_t* ok, int out_cap,
+                   int32_t* steps, cudaStream_t stream) {
+  auto kernel = deflate_decode_kernel<kWindow, kRing, kWarps, kMinBlocks>;
+  static const cudaError_t carveout = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      static_cast<int>(cudaSharedmemCarveoutMaxShared));
+  if (carveout != cudaSuccess) return carveout;
+  kernel<<<(batch + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(
+      comp, comp_lens, batch, cap, desc, tabs, index, out, out_lens, ok, out_cap, steps);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -206,16 +505,20 @@ extern "C" int acx_deflate_decode(const void* comp, const void* comp_lens,
                                   const void* tabs, const void* index,
                                   void* out, void* out_lens, void* ok,
                                   int out_cap, void* steps, void* stream) {
-  if (batch > 0) {
-    const int blocks = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    deflate_decode_kernel<<<blocks, kWarpsPerBlock * 32, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(comp),
-        static_cast<const int32_t*>(comp_lens), batch, cap,
-        static_cast<const int32_t*>(desc), static_cast<const int32_t*>(tabs),
-        static_cast<const int32_t*>(index), static_cast<uint8_t*>(out),
-        static_cast<int32_t*>(out_lens), static_cast<uint8_t*>(ok), out_cap,
-        static_cast<int32_t*>(steps));
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (batch <= 0) return static_cast<int>(cudaGetLastError());
+  const auto* c = static_cast<const uint8_t*>(comp);
+  const auto* cl = static_cast<const int32_t*>(comp_lens);
+  const auto* de = static_cast<const int32_t*>(desc);
+  const auto* t = static_cast<const int32_t*>(tabs);
+  const auto* ix = static_cast<const int32_t*>(index);
+  auto* o = static_cast<uint8_t*>(out);
+  auto* ol = static_cast<int32_t*>(out_lens);
+  auto* k = static_cast<uint8_t*>(ok);
+  auto* st = static_cast<int32_t*>(steps);
+  auto* s = static_cast<cudaStream_t>(stream);
+  if (batch <= kSmallBatchChunks)
+    return static_cast<int>(
+        launch<32768, 2048, 1, 5>(c, cl, batch, cap, de, t, ix, o, ol, k, out_cap, st, s));
+  return static_cast<int>(
+      launch<1024, 512, 4, 8>(c, cl, batch, cap, de, t, ix, o, ol, k, out_cap, st, s));
 }

@@ -25,7 +25,14 @@ add none. The JAX kernel's ``steps`` count its TPU loop bodies; the port
 counts its own loop.
 
 ``decode`` launches ``csrc/deflate_decode.cu`` for a CUDA tensor and uses
-``decode_plain`` only for a tensor on the CPU.
+``decode_plain`` only for a tensor on the CPU. The kernel keeps each
+chunk's block tables (``SLOT`` entries), its input and its recent output
+in shared memory; two instantiations, picked by the batch, differ in the
+output window (``WINDOWS``): 32 KB up to ``SMALL_BATCH`` chunks, 1 KB
+above, so that 4096 chunks fit the card in one wave. ``copy_reach`` (the
+farthest copy distance the kernel reads from its window) and
+``distance_shares`` (the share of copies, and of their bytes, within a
+reach) describe that choice on real data.
 """
 
 from __future__ import annotations
@@ -40,6 +47,17 @@ from ._rows import MAX_CHUNK as MAX_OUT, check_decode_args, put
 
 OP_LIT, OP_LEN, OP_DIST, OP_EOB, OP_SUB = 1, 2, 3, 4, 5
 ROOT_BITS = 9
+WINDOWS = (1024, 32768)  # the kernel's output windows, in bytes
+SMALL_BATCH = 660  # the most chunks that take the 32 KB window (kSmallBatchChunks)
+SLOT = 1280  # table entries the kernel keeps in shared memory for a block (kSlot)
+MAX_COPY = 258  # the longest copy a planner's table gives, and a copy step's bytes
+
+
+def copy_reach(window: int) -> int:
+    """The farthest copy distance the kernel reads from a window of this
+    size; a farther copy reads device memory."""
+    return window - MAX_COPY
+
 
 # Kernel launches and the chunks they decoded, for runs that must show the
 # kernel was used. Only a launch of the CUDA kernel adds to them.
@@ -129,6 +147,39 @@ def decode_plain(comp: torch.Tensor, comp_lens: torch.Tensor, plan: DevicePlan,
     """
     comp, comp_lens = check_decode_args(comp, comp_lens, out_cap)
     plan = _check_plan(plan, comp)
+    out, op, ok, steps = _walk(comp, comp_lens, plan, out_cap)
+    result = (out, op, ok)
+    return result + (steps,) if with_steps else result
+
+
+def distance_shares(comp: torch.Tensor, comp_lens: torch.Tensor, plan: DevicePlan,
+                    reaches=tuple(copy_reach(w) for w in WINDOWS)) -> dict:
+    """For each reach, the share of the copies of every chunk's symbol chain
+    (up to its first failing symbol) whose distance is at most that reach,
+    and the share of their output bytes; with the counts behind them. Rows
+    go 32 at a time: the plain version's memory grows with the rows."""
+    comp, comp_lens = check_decode_args(comp, comp_lens, MAX_OUT)
+    plan = _check_plan(plan, comp)
+    copies = []
+    for a in range(0, comp.shape[0], 32):
+        rows = slice(a, a + 32)
+        _walk(comp[rows], comp_lens[rows], DevicePlan(plan.desc, plan.tabs, plan.index[rows]),
+              MAX_OUT, copies)
+    dist = torch.cat([d for d, _ in copies]) if copies else torch.zeros(0, dtype=torch.int64)
+    length = torch.cat([n for _, n in copies]) if copies else torch.zeros(0, dtype=torch.int64)
+    n_copies, n_bytes = int(dist.numel()), int(length.sum())
+    within = {}
+    for reach in reaches:
+        near = dist <= reach
+        within[reach] = {"copies": int(near.sum()) / max(n_copies, 1),
+                         "bytes": int(length[near].sum()) / max(n_bytes, 1)}
+    return {"copies": n_copies, "copy_bytes": n_bytes, "within": within}
+
+
+def _walk(comp, comp_lens, plan, out_cap, copies=None):
+    """decode_plain's walk: (out, out_lens, ok, steps) as int32 and bool
+    tensors; with a list ``copies``, each Huffman block appends the (dist,
+    length) of the copies on its chains."""
     B, cap = comp.shape
     dev = comp.device
     i64 = torch.int64
@@ -182,20 +233,22 @@ def decode_plain(comp: torch.Tensor, comp_lens: torch.Tensor, plan: DevicePlan,
         if h.numel():
             h_out, h_op, h_bad, h_steps = _huffman_block(
                 word[h], 8 * clen[h], tabs, t_start[h], n_tab[h], d[h],
-                out[h, :out_cap], op[h], n_bits, out_cap)
+                out[h, :out_cap], op[h], n_bits, out_cap, copies)
             out[h, :out_cap] = h_out
             op[h] = h_op
             err[h] |= h_bad
             done[h] |= ~h_bad & last[h]
             steps[h] += h_steps
-    result = (out[:, :out_cap], op.to(torch.int32), done & ~err & (op <= out_cap))
-    return result + (steps.to(torch.int32),) if with_steps else result
+    return (out[:, :out_cap], op.to(torch.int32), done & ~err & (op <= out_cap),
+            steps.to(torch.int32))
 
 
-def _huffman_block(word, end_bit, tabs, t_start, n_tab, d, out, op0, n_bits, out_cap):
+def _huffman_block(word, end_bit, tabs, t_start, n_tab, d, out, op0, n_bits, out_cap,
+                   copies=None):
     """One Huffman block of h chunks (rows of the arguments): (out with the
     block's bytes, output length after it, whether it failed, the symbols
-    its loop looked up)."""
+    its loop looked up). With a list ``copies``, append the (dist, length)
+    of the copies its chains make before their first failing symbol."""
     h = word.shape[0]
     dev = word.device
     i64 = torch.int64
@@ -261,6 +314,9 @@ def _huffman_block(word, end_bit, tabs, t_start, n_tab, d, out, op0, n_bits, out
     first = stop.to(torch.uint8).argmax(1, keepdim=True)
     op_end = torch.where(failed, op_at.gather(1, first)[:, 0], op0 + incl[:, -1])
     steps = (on & (~failed[:, None] | (p <= first))).sum(1)
+    if copies is not None:
+        made = on & is_len & ~fail & (~failed[:, None] | (p < first))
+        copies.append((dist[made], length[made]))
 
     # Output bytes: covering symbol by searchsorted, copies by pointer
     # doubling (through bytes of earlier blocks too).

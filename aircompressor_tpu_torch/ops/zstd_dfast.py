@@ -34,6 +34,13 @@ than ``STEP_CAP`` steps (a probe or a match each; a chunk takes fewer than
 2 x 65536). The Pallas kernel shares one such cap among the 8 chunks of a
 grid step and reports a chunk cut by it as ok; here each chunk has its own.
 
+``with_steps=True`` adds a seventh result, (B,) int32: each chunk's steps
+of the serial scan above, one for each probe and one for each match, as
+the cap counts them (a chunk the cap cut has ``STEP_CAP``, or one more
+where a match took it there). The count is
+the port's own: the JAX kernel's ``meta`` counts the loop of a grid step of
+8 chunks.
+
 ``find_sequences`` launches ``csrc/zstd_dfast.cu`` for a CUDA tensor and
 uses ``find_sequences_plain`` only for a tensor on the CPU.
 """
@@ -58,12 +65,12 @@ launches = 0
 rows = 0
 
 
-def find_sequences(data: torch.Tensor, lengths: torch.Tensor):
+def find_sequences(data: torch.Tensor, lengths: torch.Tensor, with_steps: bool = False):
     """DFAST match finding for B chunks of at most 64 KB; see the module doc."""
     global launches, rows
     data, lengths = check_encode_args(data, lengths)
     if data.device.type == "cpu":
-        return find_sequences_plain(data, lengths)
+        return find_sequences_plain(data, lengths, with_steps)
     if data.device.type != "cuda":
         raise ValueError(f"no zstd DFAST matcher for device {data.device}")
     lib = _build.load()
@@ -74,17 +81,20 @@ def find_sequences(data: torch.Tensor, lengths: torch.Tensor):
     nseq = torch.empty(B, dtype=torch.int32, device=dev)
     last_lit = torch.empty(B, dtype=torch.int32, device=dev)
     ok = torch.empty(B, dtype=torch.bool, device=dev)
+    steps = torch.empty(B, dtype=torch.int32, device=dev) if with_steps else None
     if B:
         with torch.cuda.device(dev):
             err = lib.acx_zstd_dfast(
                 data.data_ptr(), lengths.data_ptr(), B, L, ll.data_ptr(),
                 ml.data_ptr(), of.data_ptr(), nseq.data_ptr(), last_lit.data_ptr(),
-                ok.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                ok.data_ptr(), steps.data_ptr() if with_steps else None,
+                torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"zstd DFAST kernel launch failed: CUDA error {err}")
         launches += 1
         rows += B
-    return ll, ml, of, nseq, last_lit, ok
+    result = (ll, ml, of, nseq, last_lit, ok)
+    return result + (steps,) if with_steps else result
 
 
 def _first(diff: torch.Tensor, width: int) -> torch.Tensor:
@@ -92,7 +102,8 @@ def _first(diff: torch.Tensor, width: int) -> torch.Tensor:
     return torch.where(diff.any(1), diff.to(torch.uint8).argmax(1), width)
 
 
-def find_sequences_plain(data: torch.Tensor, lengths: torch.Tensor):
+def find_sequences_plain(data: torch.Tensor, lengths: torch.Tensor,
+                         with_steps: bool = False):
     """Plain PyTorch DFAST matcher with the kernel's results, for tests and
     checks.
 
@@ -193,5 +204,6 @@ def find_sequences_plain(data: torch.Tensor, lengths: torch.Tensor):
         err = err | (hit & ((nseq > SEQ_CAP) | (f_ll < 0) | (moff <= 0) | (moff > f_start)))
 
     seqs = seqs[:, :, :SEQ_CAP].to(torch.int32)
-    return (seqs[0], seqs[1], seqs[2], nseq.to(torch.int32),
-            (n - anchor).to(torch.int32), ~err)
+    result = (seqs[0], seqs[1], seqs[2], nseq.to(torch.int32),
+              (n - anchor).to(torch.int32), ~err)
+    return result + (steps.to(torch.int32),) if with_steps else result

@@ -47,9 +47,11 @@ batch of frames from the host encoder, the libzstd fixture (multi-block
 frames whose sequences use repeat offsets of earlier blocks) and malformed
 frames, and on a batch of 64 KB corpus chunks through the host encoder at
 level 3, as the zstd path gives them; the LZO and deflate kernels likewise,
-on synthetic, edge, malformed and 64 KB chunks; the DFAST matcher kernel on
-its edge cases and six 64 KB chunks, and the emission kernel on their
-plans; the xxHash kernels at nonzero seeds, and xxh64 at 1, 7 and 257
+on synthetic, edge, malformed and 64 KB chunks, and the deflate kernel's
+two instantiations (257 and 661 rows) on its window and table-slot cases;
+the DFAST matcher kernel with its step counts on its edge cases, two
+hand-built round chunks (tiled to 3 and 397 rows) and six 64 KB chunks,
+and the emission kernel on their plans; the xxHash kernels at nonzero seeds, and xxh64 at 1, 7 and 257
 rows of 64 KB and 65,531 B; the r2 Snappy decode kernel on 45 rows in two
 groups of 32 (synthetic, malformed and 64 KB corpus blocks) at out_cap
 65536 and 4096, steps included, and each row alone against its own count;
@@ -58,7 +60,8 @@ KB dist-1 run, a 64 KB literal, copies at each window's reach +- 1) at
 out_cap 65536 and 4093, 257 and 793 rows of an odd width and each row
 alone; the step counts of the Snappy and LZ4 decode, the LZO and deflate
 decode and the Snappy and LZ4 encode kernels. It prints the share of the
-corpus's copies within each window's reach. Every
+corpus's Snappy and deflate copies within each window's reach, and the
+DFAST and deflate kernels' ns a step of the corpus's longest chain. Every
 byte and hash is checked against the originals and the port's host
 reference codecs. After the times it runs ``profiling.kernel_rows`` and a
 ``profiling.trace`` of both Snappy decode kernels, whose trace file must
@@ -71,8 +74,10 @@ there is no CPU path. It imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -359,6 +364,58 @@ def dfast_cases() -> list[bytes]:
             + [b"".join(parts)[:DFAST_CUT], dfast_repeat_case()])
 
 
+def _dfast_probes(count: int) -> list[int]:
+    """The first probe positions of a chunk with no match (anchor 0)."""
+    out, p = [], 0
+    while len(out) < count:
+        out.append(p)
+        p += 1 + (p >> 8)
+    return out
+
+
+def _dfast_colliding_words(seed: int = 29) -> tuple[bytes, bytes]:
+    """Two 8-byte words with equal long and equal short DFAST hashes but
+    other first 4 bytes, from a seeded birthday search."""
+    m32 = np.uint64(0xFFFFFFFF)
+    w = np.random.default_rng(seed).integers(0, 2**63, 1 << 17, dtype=np.uint64)
+    lo, b4, hi3 = w & m32, (w >> np.uint64(32)) & np.uint64(0xFF), w >> np.uint64(40)
+    h_l = (((lo * np.uint64(0x1E35A7BD)) ^ (hi3 * np.uint64(0x9E3779B9))
+            ^ (b4 * np.uint64(0x85EBCA77))) & m32) >> np.uint64(18)
+    h_s = (((lo * np.uint64(0x9E3779B9)) ^ (b4 * np.uint64(0x1E35A7BD))) & m32) >> np.uint64(18)
+    key = (h_l << np.uint64(14)) | h_s
+    order = np.argsort(key, kind="stable")
+    same = np.nonzero((key[order][1:] == key[order][:-1])
+                      & (lo[order][1:] != lo[order][:-1]))[0]
+    i, j = order[same[0]], order[same[0] + 1]
+    return int(w[i]).to_bytes(8, "little"), int(w[j]).to_bytes(8, "little")
+
+
+def dfast_collision_case() -> tuple[bytes, tuple[int, int, int]]:
+    """DFAST_CUT random bytes where two probes of one round (lanes 3 and 13
+    of round 20) hold words x and y with both hashes equal and other bytes,
+    and an older probe holds y: the later probe's true candidate is the
+    earlier lane (no match), the table's entry from before the round would
+    match. Returns the chunk and (older, earlier, later)."""
+    x, y = _dfast_colliding_words()
+    probes = _dfast_probes(32 * 21)
+    older, earlier, later = probes[32 * 5 + 7], probes[32 * 20 + 3], probes[32 * 20 + 13]
+    buf = bytearray(np.random.default_rng(31).integers(0, 256, DFAST_CUT,
+                                                       dtype=np.uint8).tobytes())
+    for pos, word in ((older, y), (earlier, x), (later, y)):
+        buf[pos:pos + 8] = word
+    return bytes(buf), (older, earlier, later)
+
+
+def dfast_in_round_case() -> tuple[bytes, tuple[int, int]]:
+    """DFAST_CUT random bytes with one 8-byte word at positions 100 and 120,
+    lanes 4 and 24 of the round from 96: the later lane matches through the
+    earlier lane's position. Returns the chunk and the two positions."""
+    buf = bytearray(np.random.default_rng(37).integers(0, 256, DFAST_CUT,
+                                                       dtype=np.uint8).tobytes())
+    buf[120:128] = buf[100:108]
+    return bytes(buf), (100, 120)
+
+
 def zstd_malformed_cases() -> list[tuple[str, bytes, str]]:
     """zstd frames that pass the planner and that the decode must reject,
     each with its name and the reason the decode gives: a Huffman stream
@@ -457,6 +514,76 @@ def deflate_full_flush(data: bytes, every: int = 2048, level: int = 6) -> bytes:
     return b"".join(parts) + co.flush()
 
 
+DEFLATE_LBASE = (3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31, 35, 43, 51, 59,
+                 67, 83, 99, 115, 131, 163, 195, 227, 258)
+DEFLATE_DBASE = (1, 2, 3, 4, 5, 7, 9, 13, 17, 25, 33, 49, 65, 97, 129, 193, 257, 385, 513,
+                 769, 1025, 1537, 2049, 3073, 4097, 6145, 8193, 12289, 16385, 24577)
+
+
+def _deflate_extra(i: int, dist: bool) -> int:
+    """The extra bits of length code 257 + i or distance code i."""
+    return max(0, i // 2 - 1) if dist else (0 if i < 8 or i == 28 else i // 4 - 1)
+
+
+class DeflateBits:
+    """An RFC 1951 bit writer: fields LSB first, Huffman codes MSB first."""
+
+    def __init__(self):
+        self.bits: list[int] = []
+
+    def put(self, value: int, width: int) -> None:
+        self.bits.extend((value >> i) & 1 for i in range(width))
+
+    def huff(self, code: int, width: int) -> None:
+        self.bits.extend((code >> i) & 1 for i in reversed(range(width)))
+
+    def align(self) -> None:
+        self.bits.extend([0] * (-len(self.bits) % 8))
+
+    def fixed_symbol(self, sym: int) -> None:
+        if sym < 144:
+            self.huff(0x30 + sym, 8)
+        elif sym < 256:
+            self.huff(0x190 + sym - 144, 9)
+        elif sym < 280:
+            self.huff(sym - 256, 7)
+        else:
+            self.huff(0xC0 + sym - 280, 8)
+
+    def fixed_block(self, tokens, final: bool) -> None:
+        """A fixed-Huffman block of tokens: a literal byte (int) or a copy
+        (length, dist), then the end of block."""
+        import bisect
+
+        self.put(int(final), 1)
+        self.put(1, 2)
+        for t in tokens:
+            if isinstance(t, int):
+                self.fixed_symbol(t)
+                continue
+            length, dist = t
+            i = bisect.bisect_right(DEFLATE_LBASE, length) - 1
+            self.fixed_symbol(257 + i)
+            self.put(length - DEFLATE_LBASE[i], _deflate_extra(i, False))
+            j = bisect.bisect_right(DEFLATE_DBASE, dist) - 1
+            self.huff(j, 5)
+            self.put(dist - DEFLATE_DBASE[j], _deflate_extra(j, True))
+        self.fixed_symbol(256)
+
+    def stored_block(self, data: bytes, final: bool) -> None:
+        self.put(int(final), 1)
+        self.put(0, 2)
+        self.align()
+        self.put(len(data), 16)
+        self.put(len(data) ^ 0xFFFF, 16)
+        for b in data:
+            self.put(b, 8)
+
+    def getvalue(self) -> bytes:
+        self.align()
+        return np.packbits(np.array(self.bits, np.uint8), bitorder="little").tobytes()
+
+
 def _canonical_codes(lengths: dict) -> dict:
     """RFC 1951 canonical Huffman codes {symbol: (code, length)}."""
     codes, code, prev = {}, 0, 0
@@ -511,6 +638,59 @@ def deflate_f3_stream() -> bytes:
     port's planner."""
     return deflate_dynamic_block({97: 2, 256: 2}, {},
                                  [("ll", 97, 0, 0)] * 3 + [("ll", 256, 0, 0)])
+
+
+def deflate_window_cases() -> list[tuple[str, bytes]]:
+    """Hand-built raw-deflate streams for the deflate kernel's windows:
+    copies at each window's reach (kWindow - 258) and one either side, with
+    lengths 258 and 3, overlapping copies and the farthest distance; a
+    64 KB all-literal fixed-Huffman block; a stored block between Huffman
+    blocks whose copies reach into it and across it."""
+    from aircompressor_tpu_torch.ops import deflate_decode
+
+    rng = np.random.default_rng(41)
+    lits = rng.integers(0, 256, 33000).tolist()
+    copies = [(258, 1), (258, 3), (100, 7)]
+    for reach in map(deflate_decode.copy_reach, deflate_decode.WINDOWS):
+        copies += [(n, d) for d in (reach - 1, reach, reach + 1) for n in (258, 3)]
+    copies.append((258, 32768))
+    w = DeflateBits()
+    w.fixed_block(lits + copies, final=True)
+    reach = w.getvalue()
+    w = DeflateBits()
+    w.fixed_block(rng.integers(0, 256, CHUNK).tolist(), final=True)
+    literal = w.getvalue()
+    w = DeflateBits()
+    w.fixed_block(rng.integers(0, 256, 5000).tolist() + [(258, 4999), (40, 1)], final=False)
+    w.stored_block(rng.integers(0, 256, 3000, dtype=np.uint8).tobytes(), final=False)
+    w.fixed_block([(258, 1500), (258, 7000), 7, (3, 3300)], final=True)
+    return [("reach", reach), ("literal-64k", literal), ("stored-between", w.getvalue())]
+
+
+def deflate_slot_cases() -> list[tuple[str, bytes]]:
+    """Dynamic blocks whose tables overflow the deflate kernel's table slot
+    (SLOT entries from the lower root): "roots-apart", literal/length
+    subtables of 320 entries, so the distance root lies past the slot; and
+    "sub-outside", subtables of 256, so both roots fit and the distance
+    subtable lies just past the slot. Both complete codes, symbols through
+    the subtables."""
+    deep = (10, 11, 12, 13, 14, 15, 15)  # one root prefix with a 64-entry subtable
+    ll = {97: 1, 98: 2, 99: 3, 100: 4, 256: 5, 257: 6, 101: 8, 102: 9}
+    ll.update(zip(range(103, 110), deep))
+    ll.update((s, 15) for s in (*range(97), *range(110, 256), *range(258, 271)))
+    apart = deflate_dynamic_block(ll, {0: 1}, [
+        ("ll", 97, 0, 0), ("ll", 103, 0, 0), ("ll", 0, 0, 0), ("ll", 200, 0, 0),
+        ("ll", 257, 0, 0), ("d", 0, 0, 0), ("ll", 98, 0, 0), ("ll", 256, 0, 0)])
+    ll = {97: 1, 98: 2, 99: 3, 100: 4, 101: 5, 256: 6, 257: 7}
+    ll.update(zip(range(103, 110), deep))
+    ll.update((s, 15) for s in (*range(97), *range(110, 205)))
+    dist = {d: d + 1 for d in range(9)}
+    dist.update(zip(range(9, 16), deep))
+    text = [("ll", 97 + i % 5, 0, 0) for i in range(60)]
+    outside = deflate_dynamic_block(ll, dist, text + [
+        ("ll", 103, 0, 0), ("ll", 257, 0, 0), ("d", 9, 2, 3), ("ll", 50, 0, 0),
+        ("ll", 257, 0, 0), ("d", 12, 0, 5), ("ll", 256, 0, 0)])
+    return [("roots-apart", apart), ("sub-outside", outside)]
 
 
 def deflate_malformed_cases() -> list[tuple[str, bytes]]:
@@ -943,18 +1123,21 @@ def zstd_encode_kernels_against_plain(dev) -> dict:
     from aircompressor_tpu_torch.ops import zstd_dfast, zstd_encode
 
     print("== zstd compress kernels against plain on the card", flush=True)
-    edge = dfast_cases()
+    edge = dfast_cases() + [dfast_collision_case()[0], dfast_in_round_case()[0]]
     chunks, data, lens = zstd_encode.stage(edge + zstd_full_cases(), dev)
-    k = zstd_dfast.find_sequences(data, lens)
+    k = zstd_dfast.find_sequences(data, lens, with_steps=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    p = zstd_dfast.find_sequences_plain(data, lens)
+    p = zstd_dfast.find_sequences_plain(data, lens, with_steps=True)
     torch.cuda.synchronize()
     t_dfast_plain = time.perf_counter() - t0
-    for name, a, b in zip(("ll", "ml", "of", "nseq", "last_lit", "ok"), k, p):
+    for name, a, b in zip(DFAST_OUTPUTS, k, p):
         require(torch.equal(a, b), f"zstd_dfast {name} equal plain")
     require(bool(k[5].all()), "every chunk ok in the matcher")
+    require(all(torch.equal(a, b) for a, b in zip(k[:6], zstd_dfast.find_sequences(data, lens))),
+            "zstd_dfast the same with and without steps")
     dfast_err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(k, p))
+    dfast_err = max(dfast_err, dfast_rounds_against_plain(dev, edge, p, len(edge)))
     pres = zstd_encode.match(chunks, data, lens)  # the host check of every proposal
     plans3 = zstd_encode.plan(chunks, 3, pres)
     plans = [q for q in plans3 + zstd_encode.plan(chunks, 1, [None] * len(chunks))
@@ -973,8 +1156,9 @@ def zstd_encode_kernels_against_plain(dev) -> dict:
     nseq = k[3].tolist()
     print(f"zstd_dfast: {len(chunks)} chunks ({len(edge)} of <= {DFAST_CUT} B, "
           f"{len(chunks) - len(edge)} of 64 KB) at width {data.shape[1]}: sequences "
-          f"{nseq}; kernel == plain on all six outputs, max_abs_err {dfast_err}; every "
-          f"proposal passes the host check; plain {t_dfast_plain:.2f} s (host clock)")
+          f"{nseq}, steps {k[6].tolist()}; kernel == plain on all six outputs and steps, "
+          f"max_abs_err {dfast_err}; every proposal passes the host check; plain "
+          f"{t_dfast_plain:.2f} s (host clock)")
     print(f"zstd_emit: {len(plans)} planned blocks (level 3 from the kernel's proposals "
           f"and level 1 from the host matcher), up to {int(packed['nseq'].max())} "
           f"sequences and {int(packed['lit_seg'][:, :, 1].sum(1).max())} literals: "
@@ -989,6 +1173,47 @@ def zstd_encode_kernels_against_plain(dev) -> dict:
                 emit_args=[torch.from_numpy(full_packed[name]).to(dev)
                            for name, _, _ in zstd_encode.EMIT_INPUTS],
                 emit_packed=full_packed)
+
+
+DFAST_OUTPUTS = ("ll", "ml", "of", "nseq", "last_lit", "ok", "steps")
+
+
+def dfast_rounds_against_plain(dev, edge: list[bytes], plain, n_edge: int) -> int:
+    """Hold the DFAST kernel to its plain version on the edge chunks at an
+    odd width (DFAST_CUT + 1), on the two round chunks (the in-round hash
+    collision and the in-round match) tiled to 3 and to 397 rows (more than
+    the 396 a wave holds), and on each row of ``plain``'s batch alone; all
+    seven outputs. Return the max_abs_err."""
+    from aircompressor_tpu_torch.ops import zstd_dfast
+    from aircompressor_tpu_torch.ops.batch import _pack, to_device_batch
+
+    err = 0
+
+    def same(got, want, what):
+        nonlocal err
+        for name, a, b in zip(DFAST_OUTPUTS, got, want):
+            require(torch.equal(a, b), f"zstd_dfast {name} equal plain: {what}")
+            err = max(err, int((a.long() - b.long()).abs().max()) if a.numel() else 0)
+
+    data, lens = to_device_batch(*_pack(edge, DFAST_CUT + 1), dev)
+    same(zstd_dfast.find_sequences(data, lens, with_steps=True),
+         [t[:n_edge] for t in plain], f"edge chunks at width {DFAST_CUT + 1}")
+    pair = [t[n_edge - 2:n_edge] for t in plain]
+    for rows in (3, 397):
+        tiled = (edge[-2:] * rows)[:rows]
+        data, lens = to_device_batch(*_pack(tiled, DFAST_CUT + 1), dev)
+        want = [torch.cat([t] * (rows // 2 + 1))[:rows] for t in pair]
+        same(zstd_dfast.find_sequences(data, lens, with_steps=True), want,
+             f"the round chunks tiled to {rows} rows")
+    full = edge + zstd_full_cases()
+    data, lens = to_device_batch(*_pack(full, CHUNK), dev)
+    for i in range(len(full)):
+        same(zstd_dfast.find_sequences(data[i:i + 1], lens[i:i + 1], with_steps=True),
+             [t[i:i + 1] for t in plain], f"row {i} alone")
+    print(f"zstd_dfast: the edge chunks at width {DFAST_CUT + 1}, the two round chunks "
+          f"tiled to 3 and 397 rows, each of the {len(full)} rows alone: kernel == plain "
+          f"(all six outputs and steps), max_abs_err {err}")
+    return err
 
 
 def dfast_bound_ms(lens: torch.Tensor) -> float:
@@ -1082,13 +1307,13 @@ def zstd_compress_path(dev, corpus: list[bytes], host_frames: list[bytes],
         reasons[q.reason or "device"] = reasons.get(q.reason or "device", 0) + 1
 
     # The corpus tiled on the device, through both kernels.
-    k256 = zstd_dfast.find_sequences(raw, raw_lens)
+    k256 = zstd_dfast.find_sequences(raw, raw_lens, with_steps=True)
     big_raw, big_lens = raw.repeat(sustain, 1), raw_lens.repeat(sustain)
     t0 = time.perf_counter()
     k_big = zstd_dfast.find_sequences(big_raw, big_lens)
     torch.cuda.synchronize()
     t_dfast_big = time.perf_counter() - t0
-    for name, a, b in zip(("ll", "ml", "of", "nseq", "last_lit", "ok"), k_big, k256):
+    for name, a, b in zip(DFAST_OUTPUTS, k_big, k256):
         require(torch.equal(a, b.repeat(sustain, *[1] * (b.dim() - 1))),
                 f"tiled zstd_dfast {name} equals the 256-chunk output tiled")
     args = [torch.from_numpy(packed[name]).to(dev) for name, _, _ in zstd_encode.EMIT_INPUTS]
@@ -1113,10 +1338,18 @@ def zstd_compress_path(dev, corpus: list[bytes], host_frames: list[bytes],
     print(f"zstd compress stages, {n} chunks (host clock): " + ", ".join(
         f"{k} {v:.4f} s" for k, v in times.items())
           + f"; total {sum(times.values()):.4f} s (pack is inside emit too)")
+    steps = k256[6]
+    top = int(steps.argmax())
+    chain = dict(steps=int(steps[top]), matches=int(k256[3][top]), chunk=top,
+                 total=int(steps.sum()))
+    digest = hashlib.sha256(b"".join(frames)).hexdigest()
     print(f"tiled x{sustain}: {big_raw.shape[0]} chunks through zstd_dfast in "
           f"{t_dfast_big:.3f} s, {big_args[0].shape[0]} planned blocks through zstd_emit "
           f"in {t_emit_big:.3f} s (host clock, first call)")
-    return dict(counts=counts, routes=routes, times=times, raw=raw, raw_lens=raw_lens,
+    print(f"zstd_dfast steps on the corpus: longest chain chunk {top}, {chain['steps']} "
+          f"steps ({chain['steps'] - chain['matches']} probes, {chain['matches']} matches); "
+          f"{chain['total']} in all; compress_chunks frames sha256 {digest}")
+    return dict(counts=counts, routes=routes, times=times, raw=raw, raw_lens=raw_lens, chain=chain,
                 big_raw=big_raw, big_lens=big_lens, args=args, big_args=big_args,
                 packed=packed, size=size, host_size=host_size, t_codec=t_codec)
 
@@ -1149,6 +1382,13 @@ def zstd_encode_times(zek: dict, zc: dict) -> list[dict]:
               f"{plain_ms:.4f} ms, bound {bounds[0]:.5f} ms; {rows[1]} rows: kernel "
               f"{ms_mid:.4f} ms, bound {bounds[1]:.5f} ms; {rows[2]} rows: kernel "
               f"{ms_big:.4f} ms, bound {bounds[2]:.5f} ms")
+        if name == "zstd_dfast":
+            chain = zc["chain"]
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            print(f"zstd_dfast: {ms_mid * 1e6 / chain['steps']:.1f} ns a step of the longest "
+                  f"chain ({chain['steps']} steps) at {rows[1]} chunks; "
+                  f"{ms_big * 1e6 * sms / (chain['total'] * SUSTAIN):.2f} ns a step of an SM "
+                  f"(all {chain['total'] * SUSTAIN} steps over {sms} SMs) at {rows[2]}")
         entry = {
             "name": name, "route": "cuda", "source": f"aircompressor_tpu_torch/csrc/{src}.cu",
             "replaces": line, "launches": zc["counts"][name],
@@ -1159,6 +1399,9 @@ def zstd_encode_times(zek: dict, zc: dict) -> list[dict]:
             "tiled_chunks": rows[2], "tiled_ms": ms_big, "tiled_bound_ms": bounds[2]}
         if name == "zstd_emit":
             entry["note"] = "the JAX package's emission is XLA, not a Pallas kernel"
+        else:
+            entry["redesigned"] = "rounds of 32 probes over the shared-memory tables"
+            entry["longest_chain_steps"] = zc["chain"]["steps"]
         entries.append(entry)
     return entries
 
@@ -1235,7 +1478,9 @@ def deflate_kernel_against_plain(dev) -> dict:
     print("== deflate kernel against plain on the card", flush=True)
     blobs, raws = deflate_cases()
     full = [deflate_raw(c) for c in corpus_full_cases()]
-    blobs, raws = blobs + full, raws + corpus_full_cases()
+    staged = [b for _, b in deflate_window_cases() + deflate_slot_cases()]
+    blobs, raws = blobs + full + staged, raws + corpus_full_cases() + [
+        zlib.decompress(b, -15) for b in staged]
     bad = deflate_malformed_cases()
     edited = [full[3], full[2]]  # planned whole, then changed
     items = blobs + [b for _, b in bad] + edited
@@ -1249,7 +1494,7 @@ def deflate_kernel_against_plain(dev) -> dict:
             status[n_good + n_bad:] == [deflate_plan.ST_OK] * 2, "every good stream plans")
     require(status[n_good:n_good + n_bad] == [deflate_plan.ST_MALFORMED] * n_bad,
             f"the planner rejects every malformed stream: {status[n_good:n_good + n_bad]}")
-    flushed = n_good - len(full) - 1
+    flushed = n_good - len(staged) - len(full) - 1
     require(int(plan.info[flushed, 1]) > 16, "the full-flush chunk has more than 16 blocks")
     lens[-2] //= 2  # the last two rows keep their plan: a cut length ...
     buf[-1, len(edited[1]) // 2] ^= 0x10  # ... and a flipped bit
@@ -1277,6 +1522,7 @@ def deflate_kernel_against_plain(dev) -> dict:
                               deflate_decode.decode_plain, comp, comp_lens, dplan,
                               out_cap=4096)
     print(f"deflate decode: with_steps == plain (largest {top} symbols)")
+    err = max(err, deflate_windows_against_plain(dev, items, buf, lens, plan))
     codec = DeflateBatchCodec(device=dev)
     good_blobs = blobs[:3]
     for name, b in bad:
@@ -1292,6 +1538,51 @@ def deflate_kernel_against_plain(dev) -> dict:
           f"planning) at out_cap {CHUNK} and 4096, kernel == plain, max_abs_err {err}; "
           f"planner {t_plan:.4f} s, plain {t_plain:.2f} s (host clock, both caps)")
     return dict(err=err, full=full)
+
+
+def deflate_windows_against_plain(dev, items: list[bytes], buf, lens, plan) -> int:
+    """Hold both instantiations of the deflate kernel to the plain version
+    with steps: the batch (every deflate case, the window and slot cases,
+    the malformed and changed streams) at an odd width, tiled to 257 rows
+    (32 KB window) and to SMALL_BATCH + 1 rows (1 KB window), at out_cap
+    64 KB and 4093, and each distinct row alone. The plain version runs on
+    the distinct rows once a cap and is tiled. Return the max_abs_err."""
+    from aircompressor_tpu_torch.ops import deflate_decode
+    from aircompressor_tpu_torch.ops.batch import to_device_batch
+
+    n, width = len(items), buf.shape[1] | 1
+    odd = np.zeros((n, width), np.uint8)
+    odd[:, :buf.shape[1]] = buf
+    comp, comp_lens = to_device_batch(odd, lens, dev)
+    err = 0
+    for out_cap in (CHUNK, 4093):
+        dplan = deflate_decode.upload(plan, dev)
+        want = deflate_decode.decode_plain(comp, comp_lens, dplan, out_cap=out_cap,
+                                           with_steps=True)
+        for rows in (257, deflate_decode.SMALL_BATCH + 1):
+            reps = rows // n + 1
+            tplan = deflate_decode.upload(tile_plan(plan, reps), dev)
+            tiled = (comp.repeat(reps, 1), comp_lens.repeat(reps))
+            got = deflate_decode.decode(*tiled, tplan, out_cap=out_cap, with_steps=True)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("out", "out_lens", "ok", "steps"), got, want):
+                require(torch.equal(a[:rows], b.repeat(reps, *[1] * (b.dim() - 1))[:rows]),
+                        f"deflate decode {name} equal plain at out_cap {out_cap}, {rows} rows")
+            err = max(err, int((got[0][:n].int() - want[0].int()).abs().max()))
+        for i in range(n):
+            one = deflate_decode.decode(comp[i:i + 1], comp_lens[i:i + 1],
+                                        deflate_decode.DevicePlan(dplan.desc, dplan.tabs,
+                                                                  dplan.index[i:i + 1]),
+                                        out_cap=out_cap, with_steps=True)
+            require(all(torch.equal(a[0], b[i]) for a, b in zip(one, want)),
+                    f"deflate decode row {i} alone equals plain at out_cap {out_cap}")
+    print(f"deflate decode windows {deflate_decode.WINDOWS}: {n} rows at width {width} "
+          f"tiled to 257 and {deflate_decode.SMALL_BATCH + 1} rows and each row alone, "
+          f"out_cap {CHUNK} and 4093 (window cases: reach +- 1 of each window, 64 KB "
+          f"literal block, stored between Huffman blocks; slot cases: roots apart, a "
+          f"subtable past the slot), kernel == plain (out, out_lens, ok, steps), "
+          f"max_abs_err {err}")
+    return err
 
 
 def tile_plan(plan, n: int):
@@ -1422,6 +1713,15 @@ def deflate_path(dev, corpus: list[bytes], sustain: int = SUSTAIN) -> dict:
             "every xxh64 of a decoded deflate chunk equals the host's of its original")
     comp_bytes = int(lens.sum())
     plan_bytes = 4 * (plan.desc.size + plan.tabs.size + plan.index.size)
+    small_plan = deflate_decode.upload(plan, dev)
+    steps = deflate_decode.decode(comp, comp_lens, small_plan, with_steps=True)[3]
+    top = int(steps.argmax())
+    chain = dict(steps=int(steps[top]), chunk=top, total=int(steps.sum()))
+    shares = deflate_decode.distance_shares(comp, comp_lens, small_plan)
+    print(f"deflate steps on the corpus: longest chain chunk {top}, {chain['steps']} "
+          f"symbols; {chain['total']} in all")
+    print("deflate copy distances of the corpus (share of copies and of their bytes "
+          "within each window's reach): " + json.dumps(shares))
     print(f"DeflateBatchCodec.compress_chunks (zlib level 6): {n} chunks, "
           f"{sum(map(len, corpus))} B -> {comp_bytes} B in {t_compress:.3f} s (host clock)")
     print(f"DeflateBatchCodec.decompress_chunks: {n} chunks in {t_codec:.4f} s (host "
@@ -1431,7 +1731,7 @@ def deflate_path(dev, corpus: list[bytes], sustain: int = SUSTAIN) -> dict:
     print(f"tiled x{sustain}: {big.shape[0]} chunks (plan tiled, not replanned) decoded "
           f"and xxh64-hashed in {t_big:.3f} s (host clock, first call, upload included); "
           f"launches {counts}, {rows} of {n_all} chunks through the deflate kernel")
-    return dict(comp=comp, comp_lens=comp_lens, plan=deflate_decode.upload(plan, dev),
+    return dict(comp=comp, comp_lens=comp_lens, plan=small_plan, chain=chain,
                 big=big, big_lens=big_lens, big_plan=big_plan, counts=counts,
                 comp_bytes=comp_bytes, plan_bytes=plan_bytes,
                 decoded_bytes=int(out_lens.sum()), t_plan=t_plan, t_codec=t_codec)
@@ -1486,6 +1786,15 @@ def lzo_deflate_times(dev, lk: dict, lp: dict, dk: dict, dp: dict) -> list[dict]
             "library_ms": None, "batch": "6 corpus chunks of 64 KB",
             "chunks": N_CHUNKS, "chunks_ms": ms_mid, "chunks_bound_ms": b_mid,
             "tiled_chunks": N_CHUNKS * SUSTAIN, "tiled_ms": ms_big, "tiled_bound_ms": b_big})
+        if name == "deflate_decode":
+            chain, sms = path["chain"], torch.cuda.get_device_properties(0).multi_processor_count
+            entries[-1].update(redesigned="table slot, input ring and output window in "
+                               "shared memory", longest_chain_steps=chain["steps"])
+            print(f"deflate_decode: {ms_mid * 1e6 / chain['steps']:.1f} ns a symbol of the "
+                  f"longest chain ({chain['steps']} symbols) at {N_CHUNKS} chunks; "
+                  f"{ms_big * 1e6 * sms / (chain['total'] * SUSTAIN):.2f} ns a symbol of an "
+                  f"SM (all {chain['total'] * SUSTAIN} symbols over {sms} SMs) at "
+                  f"{N_CHUNKS * SUSTAIN}")
     print(f"deflate planner on the host: {N_CHUNKS} chunks in {dp['t_plan']:.4f} s (host "
           f"clock) beside the kernel's {entries[1]['chunks_ms']:.4f} ms")
     return entries

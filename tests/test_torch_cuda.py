@@ -34,7 +34,8 @@ from aircompressor_tpu_torch.ops.batch import (
 from chip_smoke import (
     LZ4_EDGE_BLOCKS, LZO_EDGE_BLOCKS, LZO_EDGE_CAP, R2_MALFORMED, XXH_SEED_LENGTHS,
     XXH_SEEDS,
-    backward_cap_case, deflate_cases, deflate_malformed_cases, dfast_cases,
+    backward_cap_case, deflate_cases, deflate_malformed_cases, deflate_slot_cases,
+    deflate_window_cases, dfast_cases, dfast_collision_case, dfast_in_round_case,
     lz4_length_edges_case, lz4_malformed_cases, lzo_cases, snappy_window_cases,
     zstd_cases, zstd_full_cases, zstd_malformed_cases)
 
@@ -579,3 +580,43 @@ def test_kernels_with_steps_equal_plain(device, synthetic, codec):
     for g, w in zip(got, run(kernel)):
         assert torch.equal(g, w)
     assert int(got[3].max()) > 0
+
+
+@pytest.mark.parametrize("rows", [3, 397])
+def test_zstd_dfast_kernel_rounds_with_steps(device, rows):
+    """The two round chunks (an in-round hash collision, an in-round match)
+    and the edge chunks, tiled past one wave at 397 rows: kernel == plain on
+    all seven outputs, and the six outputs as with steps off."""
+    chunks = [dfast_collision_case()[0], dfast_in_round_case()[0]] + dfast_cases()
+    tiled = (chunks * (rows // len(chunks) + 1))[:rows]
+    data, lens = to_device_batch(*_pack(tiled, 8193), device)
+    got = zstd_dfast.find_sequences(data, lens, with_steps=True)
+    for g, w in zip(got, zstd_dfast.find_sequences_plain(data, lens, with_steps=True)):
+        assert g.device.type == "cuda"
+        assert torch.equal(g, w)
+    for g, w in zip(got, zstd_dfast.find_sequences(data, lens)):
+        assert torch.equal(g, w)
+    assert int(got[6].max()) > 1000
+
+
+@pytest.mark.parametrize("rows", [7, deflate_decode.SMALL_BATCH + 1])
+@pytest.mark.parametrize("out_cap", [65536, 4093])
+def test_deflate_decode_kernel_window_and_slot_cases(device, rows, out_cap):
+    """Both instantiations (7 rows: 32 KB window; SMALL_BATCH + 1: 1 KB) on
+    the window cases and the slot cases at an odd width: kernel == plain
+    with steps, the plain version run once on the distinct rows."""
+    items = [b for _, b in deflate_window_cases() + deflate_slot_cases()]
+    buf, lens = _pack(items, max(map(len, items)) + 3)
+    plan = deflate_plan.plan(buf, lens)
+    comp, comp_lens = to_device_batch(buf, lens, device)
+    want = deflate_decode.decode_plain(comp, comp_lens, deflate_decode.upload(plan, device),
+                                       out_cap=out_cap, with_steps=True)
+    reps = rows // len(items) + 1
+    from chip_smoke import tile_plan
+
+    got = deflate_decode.decode(comp.repeat(reps, 1), comp_lens.repeat(reps),
+                                deflate_decode.upload(tile_plan(plan, reps), device),
+                                out_cap=out_cap, with_steps=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w.repeat(reps, *[1] * (w.dim() - 1)))
+    assert bool(want[2].all()) or out_cap < 65536
