@@ -4,8 +4,9 @@ g++, and load them with ctypes.
 ``csrc/*.cu`` compile once into one shared library with a plain C
 interface, under ``build/kernels/`` at the root of the checkout: one nvcc
 process for each source, all started together, then one link. The file
-name carries a hash of the sources and flags, so an edited source builds
-anew and an unchanged one loads the library already built. Nothing here
+name carries a hash of the sources, the headers they share (``csrc/*.cuh``)
+and the flags, so an edited source builds anew and an unchanged one loads
+the library already built. Nothing here
 includes PyTorch's headers: pointers and the stream pass as integers, which
 keeps a build to seconds. Nothing is built when the module is imported.
 
@@ -43,10 +44,10 @@ _U64 = ctypes.c_uint64
 _SIGNATURES = {
     "acx_snappy_decode": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P],
     "acx_snappy_decode_r2": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P],
-    "acx_snappy_encode": [_P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "acx_snappy_encode": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P],
     "acx_xxh64": [_P, _P, _I, _I, _U64, _P, _P],
     "acx_lz4_decode": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P],
-    "acx_lz4_encode": [_P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "acx_lz4_encode": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P],
     "acx_xxh32": [_P, _P, _I, _I, _U32, _P, _P],
     "acx_zstd_huffman": [_P, _L, _P, _P, _I, _P, _P, _P],
     "acx_zstd_fse": [_P, _L, _P, _P, _P, _I, _P, _P, _P, _P],
@@ -82,8 +83,9 @@ def _hashed_path(directory: Path, stem: str, flags, sources) -> Path:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
-    return _hashed_path(BUILD_DIR, "libaircompressor_kernels", NVCC_FLAGS, _sources())
+    """Where the library for the current sources, headers and flags lives."""
+    return _hashed_path(BUILD_DIR, "libaircompressor_kernels", NVCC_FLAGS,
+                        _sources() + sorted(CSRC.glob("*.cuh")))
 
 
 def host_library_path() -> Path:

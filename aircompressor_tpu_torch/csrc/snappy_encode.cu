@@ -13,47 +13,48 @@
 // 64 / 60 / rest; after a match mend - 1 enters the table, ip = anchor =
 // mend, skip = 32; the tail is one literal run.
 //
-// Design: the whole warp walks the same chunk. The hash table lives in
+// With a non-null `steps`, lane 0 also writes each chunk's probes of that
+// serial scan (a probe that hits and the match it emits being one). A null
+// `steps` writes nothing more.
+//
+// Design: rounds of 32 probes (encode_rounds.cuh). The table lives in
 // shared memory as uint16 positions (32 KB a block), 0xffff for "empty":
-// every stored position is below 65521, so an empty entry fails the
-// cand < ip test by itself. Lane 0 reads and writes the table and
-// __shfl_sync hands the candidate to every lane, so control flow stays the
-// same on all lanes. Forward and backward extension compare 32 bytes a step,
-// one per lane, and __ballot_sync finds the first mismatch. Literal bytes
-// and the 64-byte copy pieces are written by all 32 lanes. The table insert
-// after a match is made only where a later probe can read it (mend < len -
-// 15), so no byte at or past a chunk's length is ever read.
+// every stored position is below 65521, so an empty entry fails cand < ip by
+// itself. Lane k of a round probes ip + k * (skip >> 5) and reads the table
+// as the probes before it left it (the highest earlier lane with its hash,
+// else the round's entry); the first hit ends the round and only probes up
+// to it write. Forward and backward extension compare 128 bytes a ballot.
+// Literal runs are copied 16 bytes a lane into aligned stores with four
+// blocks' loads in flight a lane, and the 3-byte pieces of a long copy are
+// written as one periodic string likewise; lane 0 writes the headers. The
+// table insert after a match is made only where a later probe can read it
+// (mend < len - 15), so no byte at or past a chunk's length is ever read,
+// and word loads fall back to bytes at the chunk's edges.
 //
-// With a non-null `steps`, lane 0 also writes the iterations of the
-// match-search loop for each chunk: the probes of the scan, a probe that hits
-// and the match it emits being one. A null `steps` writes nothing more.
-//
-// What bounds it on this card: the scan is a serial chain per chunk, each
-// probe's position depending on the probe before, with a table lookup and a
-// load of the candidate's bytes on its path. The card is filled only by the
-// chunks in flight: the 32 KB table allows 6 blocks (6 chunks) an SM, 792 on
-// 132 SMs. Left for later: speculative probing of the next positions on
-// idle lanes, staging the input in shared memory, more chunks an SM.
+// What bounds it on this card: each chunk is still a serial chain, now of
+// rounds and extension ballots, each a few dependent trips to L1 or L2 (the
+// words at the probes, the table entries, the candidates' words) and to
+// shared memory; the card is filled only by the chunks in flight, the 32 KB
+// table a block allowing 6 blocks (6 chunks) an SM at the largest carveout.
+// The carveout (`carveout`, percent of the SM's most shared memory) trades
+// chunks an SM against L1 for the candidate loads, which land anywhere in
+// the chunk: the wrapper takes a small one (3 chunks an SM beside 156 KB of
+// L1) for a batch that fits one wave of those, the largest otherwise
+// (ops/_rows.py::encode_carveout; PERF.md has the settings timed).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "encode_rounds.cuh"
+
 namespace {
 
-constexpr int kHashLog = 14;
-constexpr int kTableSize = 1 << kHashLog;
+using namespace acx_encode;
+
 constexpr int kOutCap = 76800;
 constexpr int kInputMargin = 15;
-constexpr unsigned kAllLanes = 0xffffffffu;
-
-__device__ __forceinline__ uint32_t load_u32(const uint8_t* p) {
-  return static_cast<uint32_t>(p[0]) | (static_cast<uint32_t>(p[1]) << 8) |
-         (static_cast<uint32_t>(p[2]) << 16) | (static_cast<uint32_t>(p[3]) << 24);
-}
-
-__device__ __forceinline__ int hash_of(uint32_t word) {
-  return static_cast<int>((word * 0x1E35A7BDu) >> (32 - kHashLog));
-}
+constexpr int kSkipShift = 5;
+constexpr uint32_t kHashMul = 0x1E35A7BDu;
 
 __global__ void __launch_bounds__(32)
 snappy_encode_kernel(const uint8_t* __restrict__ data,
@@ -82,6 +83,7 @@ snappy_encode_kernel(const uint8_t* __restrict__ data,
     int m = n;
     for (int k = 0; k < op; ++k, m >>= 7) put(k, k + 1 < op ? (m & 127) | 128 : m);
   }
+  auto room_at = [&](int len) { return max(0, min(len, kOutCap - op)); };
 
   auto emit_literal = [&](int from, int len) {
     const int n1 = len - 1;
@@ -92,26 +94,30 @@ snappy_encode_kernel(const uint8_t* __restrict__ data,
       if (hlen == 3) put(op + 2, n1 >> 8);
     }
     op += hlen;
-    for (int k = lane; k < len; k += 32) put(op + k, src[from + k]);
+    copy_bytes(dst, op, src, n, from, room_at(len), lane);
     op += len;
+  };
+
+  // One 3-byte COPY_2 piece of `len` bytes at dist, by lane 0.
+  auto emit_copy2 = [&](int len, int dist) {
+    if (lane == 0) {
+      put(op, 2 | ((len - 1) << 2));
+      put(op + 1, dist & 255);
+      put(op + 2, dist >> 8);
+    }
+    op += 3;
   };
 
   auto emit_copy = [&](int len, int dist) {
     const int n64 = len >= 68 ? (len - 68) / 64 + 1 : 0;
-    for (int i = lane; i < n64; i += 32) {
-      put(op + 3 * i, 2 | (63 << 2));
-      put(op + 3 * i + 1, dist & 255);
-      put(op + 3 * i + 2, dist >> 8);
-    }
+    fill3(dst, op, room_at(3 * n64),
+          (2 | (63 << 2)) | static_cast<uint32_t>(dist & 255) << 8 |
+              static_cast<uint32_t>(dist >> 8) << 16,
+          lane);
     op += 3 * n64;
     int rest = len - 64 * n64;
     if (rest > 64) {
-      if (lane == 0) {
-        put(op, 2 | (59 << 2));
-        put(op + 1, dist & 255);
-        put(op + 2, dist >> 8);
-      }
-      op += 3;
+      emit_copy2(60, dist);
       rest -= 60;
     }
     if (rest <= 11 && dist < 2048) {
@@ -121,79 +127,43 @@ snappy_encode_kernel(const uint8_t* __restrict__ data,
       }
       op += 2;
     } else {
-      if (lane == 0) {
-        put(op, 2 | ((rest - 1) << 2));
-        put(op + 1, dist & 255);
-        put(op + 2, dist >> 8);
-      }
-      op += 3;
+      emit_copy2(rest, dist);
     }
   };
 
+  const int find_limit = n - kInputMargin;
   int ip = 0;
   int anchor = 0;
-  int skip = 32;
+  int skip = 1 << kSkipShift;
   int count = 0;
-  while (ip < n - kInputMargin) {
-    ++count;
-    const uint32_t word = load_u32(src + ip);
-    const int h = hash_of(word);
-    int cand = 0;
-    if (lane == 0) {
-      cand = table[h];
-      table[h] = static_cast<uint16_t>(ip);
-    }
-    cand = __shfl_sync(kAllLanes, cand, 0);
-    if (cand >= ip || load_u32(src + cand) != word) {
-      ip += skip >> 5;
-      ++skip;
+  while (ip < find_limit) {
+    // The lanes also pull the next 1 KB of the chunk into L2, ahead of the scan.
+    prefetch_l2(src + min(ip + 1024 + 32 * lane, n - 1));
+    const int step = skip >> kSkipShift;
+    const Round r = probe_round(src, n, table, kHashMul, ip, step, find_limit, lane);
+    count += r.ran;
+    if (r.hit < 0) {  // all missed; fewer than 32 ran only at the find limit
+      skip += r.ran;
+      ip += 32 * step;
       continue;
     }
-
-    // Forward: the first lane whose byte differs, or lies at or past n.
-    int mlen = 4;
-    while (true) {
-      const int a = ip + mlen + lane;
-      const bool diff = a >= n || src[a] != src[cand + mlen + lane];
-      const unsigned mask = __ballot_sync(kAllLanes, diff);
-      if (mask) {
-        mlen += __ffs(mask) - 1;
-        break;
-      }
-      mlen += 32;
-    }
-    const int mend = ip + mlen;
-
-    // Backward: bytes ip-1-k against cand-1-k for k < room.
-    const int room = min(min(ip - anchor, cand), 127);
-    int back = 0;
-    while (back < room) {
-      const int k = back + lane;
-      const bool diff = k >= room || src[ip - 1 - k] != src[cand - 1 - k];
-      const unsigned mask = __ballot_sync(kAllLanes, diff);
-      if (mask) {
-        back += __ffs(mask) - 1;
-        break;
-      }
-      back += 32;
-    }
-
+    ip += r.hit * step;
+    const int cand = r.cand;
+    const int mlen = extend_forward(src, ip, cand, n, lane);
+    const int back = extend_backward(src, n, ip, cand, min(min(ip - anchor, cand), 127), lane);
     if (ip - back > anchor) emit_literal(anchor, ip - back - anchor);
     emit_copy(mlen + back, ip - cand);
-    if (lane == 0 && mend < n - kInputMargin)
-      table[hash_of(load_u32(src + mend - 1))] = static_cast<uint16_t>(mend - 1);
+    const int mend = ip + mlen;
+    if (lane == 0 && mend < find_limit)
+      table[hash_of(load4(src, mend - 1, n), kHashMul)] = static_cast<uint16_t>(mend - 1);
+    __syncwarp();
     ip = mend;
     anchor = mend;
-    skip = 32;
+    skip = 1 << kSkipShift;
   }
   if (n > anchor) emit_literal(anchor, n - anchor);
 
-  // Zero the rest of the row: bytes up to a 16-byte boundary, then 16 a lane.
-  const int aligned = min((op + 15) & ~15, kOutCap);
-  for (int j = op + lane; j < aligned; j += 32) dst[j] = 0;
-  uint4* dst4 = reinterpret_cast<uint4*>(dst);
-  for (int j = aligned / 16 + lane; j < kOutCap / 16; j += 32)
-    dst4[j] = make_uint4(0, 0, 0, 0);
+  zero_tail(dst, op, kOutCap, lane);
   if (lane == 0) {
     comp_lens[chunk] = min(op, kOutCap);
     ok[chunk] = op + 8 <= kOutCap;
@@ -203,19 +173,19 @@ snappy_encode_kernel(const uint8_t* __restrict__ data,
 
 }  // namespace
 
-// Launches the encode on `stream` and returns cudaGetLastError(). The caller
-// allocates every buffer: comp (batch, 76800) uint8, comp_lens (batch,)
-// int32, ok (batch,) bool, steps (batch,) int32 or null; data rows must
-// start 16-byte aligned in comp.
+// Launches the encode on `stream` and returns cudaGetLastError() (or the
+// error of setting the carveout, percent of the SM's most shared memory).
+// The caller allocates every buffer: comp (batch, 76800) uint8, comp_lens
+// (batch,) int32, ok (batch,) bool, steps (batch,) int32 or null; comp must
+// start 16-byte aligned.
 extern "C" int acx_snappy_encode(const void* data, const void* lengths,
                                  int batch, int cap, void* comp,
                                  void* comp_lens, void* ok, void* steps,
-                                 void* stream) {
+                                 int carveout, void* stream) {
   if (batch > 0) {
-    static const cudaError_t carveout = cudaFuncSetAttribute(
-        snappy_encode_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-        static_cast<int>(cudaSharedmemCarveoutMaxShared));
-    if (carveout != cudaSuccess) return static_cast<int>(carveout);
+    static int last_carveout = -1;
+    const cudaError_t set = set_carveout(snappy_encode_kernel, carveout, &last_carveout);
+    if (set != cudaSuccess) return static_cast<int>(set);
     snappy_encode_kernel<<<batch, 32, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(data), static_cast<const int32_t*>(lengths),
         cap, static_cast<uint8_t*>(comp), static_cast<int32_t*>(comp_lens),

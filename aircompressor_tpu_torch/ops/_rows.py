@@ -12,6 +12,25 @@ import torch
 MAX_CHUNK = 65536
 
 
+# The encode kernels' shared-memory carveouts, percent of the most shared
+# memory an SM has, with the chunks (a 32 KB table each) each holds an SM:
+# the wide one 6 beside 28 KB of L1, the narrow one 3 beside 156 KB.
+# chip_smoke.py times these and three more (PERF.md).
+ENCODE_CARVEOUT_WIDE = 100
+ENCODE_CARVEOUT_NARROW, ENCODE_NARROW_CHUNKS = 43, 3
+
+
+def encode_carveout(batch: int, device: torch.device) -> int:
+    """The Snappy and LZ4 encode kernels' carveout for a batch: the narrow
+    one where the batch fits in one wave of ENCODE_NARROW_CHUNKS an SM,
+    since its candidate loads then find more L1, else the wide one, since
+    more chunks then run at once."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if batch <= ENCODE_NARROW_CHUNKS * sms:
+        return ENCODE_CARVEOUT_NARROW
+    return ENCODE_CARVEOUT_WIDE
+
+
 def check_decode_args(comp: torch.Tensor, comp_lens: torch.Tensor, out_cap: int):
     """Contiguous ``comp`` and int32 ``comp_lens``; raises on a bad batch or
     an ``out_cap`` outside [1, 65536]."""

@@ -30,7 +30,11 @@ one). The JAX kernel's ``steps`` count its TPU loop bodies; the port counts
 its own loop.
 
 ``encode`` launches ``csrc/lz4_encode.cu`` for a CUDA tensor and uses
-``encode_plain`` only for a tensor on the CPU.
+``encode_plain`` only for a tensor on the CPU. The kernel runs the scan in
+rounds of 32 probes (lane k the k-th position, each reading the table as
+the probes before it left it) and extends 128 bytes a ballot, with the
+serial scan's results and step counts (``tests/test_torch_encode_rounds.py``
+models the rounds).
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ._rows import check_encode_args, put, u32le
+from ._rows import check_encode_args, encode_carveout, put, u32le
 
 OUT_CAP = 66560
 HASH_LOG = 14
@@ -73,7 +77,7 @@ def encode(data: torch.Tensor, lengths: torch.Tensor, with_steps: bool = False):
             err = lib.acx_lz4_encode(
                 data.data_ptr(), lengths.data_ptr(), B, cap, comp.data_ptr(),
                 comp_lens.data_ptr(), ok.data_ptr(),
-                steps.data_ptr() if with_steps else None,
+                steps.data_ptr() if with_steps else None, encode_carveout(B, data.device),
                 torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"lz4 encode kernel launch failed: CUDA error {err}")

@@ -59,9 +59,12 @@ both output windows of the Snappy decode kernel on its window cases (a 64
 KB dist-1 run, a 64 KB literal, copies at each window's reach +- 1) at
 out_cap 65536 and 4093, 257 and 793 rows of an odd width and each row
 alone; the step counts of the Snappy and LZ4 decode, the LZO and deflate
-decode and the Snappy and LZ4 encode kernels. It prints the share of the
-corpus's Snappy and deflate copies within each window's reach, and the
-DFAST and deflate kernels' ns a step of the corpus's longest chain. Every
+decode and the Snappy and LZ4 encode kernels, the encoders' also on their
+hand-built round chunks (tiled to 3 and 793 rows), on 64 KB rows and on
+the corpus. It prints the share of the corpus's Snappy and deflate copies
+within each window's reach, the DFAST, deflate and encode kernels' ns a
+step of the corpus's longest chain, and the encode kernels' times at five
+shared-memory carveouts. Every
 byte and hash is checked against the originals and the port's host
 reference codecs. After the times it runs ``profiling.kernel_rows`` and a
 ``profiling.trace`` of both Snappy decode kernels, whose trace file must
@@ -284,6 +287,95 @@ def encode_cases() -> list[bytes]:
         payload = _selfcheck_payload(seed)
         cases.append(payload[-ENC_CUT - ENC_CUT // 2:-ENC_CUT // 2])
     return cases
+
+
+def enc_margin(codec: str) -> int:
+    """Probes run while ``ip < len - margin``."""
+    return {"lz4": 12, "snappy": 15}[codec]
+
+
+def enc_probes(codec: str, count: int) -> list[int]:
+    """The first probe positions of a Snappy or LZ4 encode scan from 0 that
+    finds no match: ``ip += skip >> shift``, ``skip`` from ``1 << shift``."""
+    shift = 6 if codec == "lz4" else 5
+    out, p, skip = [], 0, 1 << shift
+    while len(out) < count:
+        out.append(p)
+        p += skip >> shift
+        skip += 1
+    return out
+
+
+def enc_hash(codec: str, words: np.ndarray) -> np.ndarray:
+    """The 14-bit table hash of 4-byte little-endian words."""
+    mul = np.uint64(2654435761 if codec == "lz4" else 0x1E35A7BD)
+    return ((words.astype(np.uint64) * mul) & np.uint64(0xFFFFFFFF)) >> np.uint64(18)
+
+
+def _enc_colliding_words(codec: str, seed: int = 41) -> tuple[bytes, bytes]:
+    """Two 4-byte words with one table hash, from a seeded birthday search."""
+    w = np.random.default_rng(seed).integers(0, 2**32, 4096, dtype=np.uint64)
+    h = enc_hash(codec, w)
+    order = np.argsort(h, kind="stable")
+    same = np.nonzero((h[order][1:] == h[order][:-1]) & (w[order][1:] != w[order][:-1]))[0]
+    i, j = order[same[0]], order[same[0] + 1]
+    return int(w[i]).to_bytes(4, "little"), int(w[j]).to_bytes(4, "little")
+
+
+def encode_round_cases(codec: str) -> list[tuple[str, bytes]]:
+    """Hand-built chunks for the rounds of 32 probes of the LZ4 (``codec``
+    "lz4") or Snappy ("snappy") encode kernel, random bytes but for:
+
+    - collision: probes 3 and 13 of round 20 hold words x and y with one
+      hash and other bytes, and probe 7 of round 5 holds y; the later probe's
+      candidate is the earlier lane (no match), the table's entry from
+      before the round would match;
+    - in_round: probe 24 of round 2 repeats the 8 bytes at probe 4;
+    - commit: bytes 20-59 repeat at distance 16, so round 0 hits at lane 20
+      (on lane 4) and its lanes 21-31 have the hashes of lanes 5-15; bytes
+      200-207 repeat bytes 10-17, and that later probe's candidate is lane
+      10's position, which lane 26 did not overwrite;
+    - step_grows: the first round whose step is 2 (skip reaches 128 in LZ4,
+      64 in Snappy) hits at its lane 5, on the bytes of probe 10 of round 0;
+    - find_limit: the chunk ends so that the limit cuts a round after its
+      lane 19, whose probe hits (on the bytes of probe 10) and runs to the
+      chunk's end;
+    - match_limit_0..3: 2000 random bytes then a repeat of them, at four
+      lengths: forward extension runs to the match limit, which falls at
+      each of the four bytes of a lane's window once.
+    """
+    rng = np.random.default_rng({"lz4": 43, "snappy": 47}[codec])
+    cut, margin = ENC_CUT, enc_margin(codec)
+    probes = enc_probes(codec, 32 * 64)
+    first_step2 = 64 if codec == "lz4" else 32
+
+    def noise(n=cut):
+        return bytearray(rng.integers(0, 256, n, dtype=np.uint8).tobytes())
+
+    x, y = _enc_colliding_words(codec)
+    coll = noise()
+    for pos, word in ((probes[32 * 5 + 7], y), (probes[32 * 20 + 3], x),
+                      (probes[32 * 20 + 13], y)):
+        coll[pos:pos + 4] = word
+    in_round = noise()
+    a, b = probes[64 + 4], probes[64 + 24]
+    in_round[b:b + 8] = in_round[a:a + 8]
+    commit = noise()
+    for i in range(20, 60):
+        commit[i] = commit[i - 16]
+    commit[200:208] = commit[10:18]
+    grows = noise()
+    a, b = probes[10], probes[first_step2 + 5]
+    grows[b:b + 8] = grows[a:a + 8]
+    last = max(i for i in range(19, len(probes), 32) if probes[i] + 1 + margin <= cut)
+    n = probes[last] + 1 + margin
+    limit = noise(n)
+    a, b = probes[10], probes[last]
+    limit[b:] = limit[a:a + n - b]
+    head = bytes(noise(2000))
+    cases = [("collision", bytes(coll)), ("in_round", bytes(in_round)),
+             ("commit", bytes(commit)), ("step_grows", bytes(grows)), ("find_limit", bytes(limit))]
+    return cases + [(f"match_limit_{k}", (head + head)[:3001 + k]) for k in range(4)]
 
 
 def full_cases(corpus: list[bytes]) -> list[bytes]:
@@ -769,6 +861,123 @@ def steps_against_plain(name: str, kernel, plain, *args, **kw) -> int:
     for i, (a, b) in enumerate(zip(k[:3], kernel(*args, **kw))):
         require(torch.equal(a, b), f"{name} result {i} the same with and without steps")
     return int(k[3].max())
+
+
+ENC_OUTPUTS = ("comp", "comp_lens", "ok", "steps")
+# Shared-memory carveouts timed for the encode kernels, percent of an SM's
+# most: 228, 196, 164, 132 and 100 KB, 6, 5, 4, 4 and 3 chunks (32 KB
+# tables) an SM beside 28, 60, 92, 124 and 156 KB of L1.
+ENC_CARVEOUTS = (100, 85, 71, 57, 43)
+ENC_REDESIGN = ("PR 10: rounds of 32 probes over the shared-memory table, 128-byte "
+                "extension, literal copies with loads in flight")
+
+
+def _enc_modules():
+    from aircompressor_tpu_torch.ops import lz4_encode, snappy_encode
+
+    return (("snappy", snappy_encode), ("lz4", lz4_encode))
+
+
+def encode_rounds_against_plain(dev) -> dict:
+    """Hold the Snappy and LZ4 encode kernels to their plain versions on their
+    round chunks (``encode_round_cases``) at width ENC_CUT + 1, tiled to 3
+    and to 793 rows (past the 792 chunks a wave holds at 6 an SM), with
+    ``with_steps`` (all four outputs) and without (the first three). Return
+    each kernel's max_abs_err by name."""
+    from aircompressor_tpu_torch.ops.batch import _pack, to_device_batch
+
+    errs = {}
+    for codec, mod in _enc_modules():
+        chunks = [c for _, c in encode_round_cases(codec)]
+        data, lens = to_device_batch(*_pack(chunks, ENC_CUT + 1), dev)
+        want = mod.encode_plain(data, lens, with_steps=True)
+        err = 0
+        for rows in (3, 793):
+            idx = torch.arange(rows, device=dev) % len(chunks)
+            args = data[idx].contiguous(), lens[idx]
+            tiled = [t[idx] for t in want]
+            for got in (mod.encode(*args, with_steps=True), mod.encode(*args)):
+                for name, a, b in zip(ENC_OUTPUTS, got, tiled):
+                    require(torch.equal(a, b), f"{codec} encode {name} equal plain on the "
+                            f"round chunks at {rows} rows, with_steps={len(got) == 4}")
+                err = max(err, int((got[0].int() - tiled[0].int()).abs().max()))
+        errs[f"{codec}_encode"] = err
+        print(f"{codec} encode: the {len(chunks)} round chunks at width {ENC_CUT + 1}, tiled to "
+              f"3 and 793 rows, with and without steps: kernel == plain (comp, comp_lens, ok, "
+              f"steps), max_abs_err {err}; steps {want[3].tolist()}")
+    return errs
+
+
+def encoded_matches(codec: str, blob: bytes) -> int:
+    """The matches in a block as these encoders write it: LZ4's sequences
+    with an offset; Snappy's copies, the pieces of one match (one offset, no
+    literal between them) counted once."""
+    i, count = 0, 0
+    if codec == "lz4":
+        while True:
+            token = blob[i]
+            i += 1
+            lit = token >> 4
+            if lit == 15:  # the 255-extension ends at its first byte under 255
+                while blob[i] == 255:
+                    lit += 255
+                    i += 1
+                lit += blob[i]
+                i += 1
+            i += lit
+            if i >= len(blob):
+                return count
+            count += 1
+            i += 2
+            if token & 15 == 15:
+                while blob[i] == 255:
+                    i += 1
+                i += 1
+    while blob[i] & 128:  # the varint length
+        i += 1
+    i += 1
+    last = None
+    while i < len(blob):
+        tag, kind = blob[i], blob[i] & 3
+        if kind == 0:
+            n1 = tag >> 2
+            size = {60: 1, 61: 2}.get(n1, 0)
+            n1 = int.from_bytes(blob[i + 1:i + 1 + size], "little") if size else n1
+            i += 1 + size + n1 + 1
+            last = None
+            continue
+        dist = (((tag >> 5) << 8) | blob[i + 1]) if kind == 1 else blob[i + 1] | blob[i + 2] << 8
+        count += dist != last
+        last = dist
+        i += 2 if kind == 1 else 3
+    return count
+
+
+def encode_chains_against_plain(raw, raw_lens) -> dict:
+    """Hold both encode kernels with ``with_steps`` to their plain versions on
+    the corpus (all four outputs), and return for each its longest chain:
+    chunk, probes and matches, and the probes of all chunks."""
+    chains = {}
+    for codec, mod in _enc_modules():
+        got = mod.encode(raw, raw_lens, with_steps=True)
+        t0 = time.perf_counter()
+        want = mod.encode_plain(raw, raw_lens, with_steps=True)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        for name, a, b in zip(ENC_OUTPUTS, got, want):
+            require(torch.equal(a, b), f"{codec} encode {name} equal plain on the corpus")
+        steps = got[3]
+        top = int(steps.argmax())
+        blob = got[0][top, :int(got[1][top])].cpu().numpy().tobytes()
+        chain = dict(chunk=top, probes=int(steps[top]), matches=encoded_matches(codec, blob),
+                     total=int(steps.sum()),
+                     err=int((got[0].int() - want[0].int()).abs().max()))
+        chains[codec] = chain
+        print(f"{codec} encode on the corpus: kernel == plain with steps (comp, comp_lens, ok, "
+              f"steps; plain {t_plain:.1f} s, host clock); longest chain chunk {top}: "
+              f"{chain['probes']} probes, {chain['matches']} matches; {chain['total']} "
+              f"probes in all")
+    return chains
 
 
 def snappy_window_against_plain(dev, blobs: list[bytes]) -> int:
@@ -1868,6 +2077,7 @@ def main() -> None:
     from aircompressor_tpu_torch.ops import (
         checksum, lz4_decode, lz4_encode, snappy_decode, snappy_decode_r2,
         snappy_encode, xxhash)
+    from aircompressor_tpu_torch.ops._rows import encode_carveout
     from aircompressor_tpu_torch.ops.batch import (
         Lz4BatchCodec, SnappyBatchCodec, _pack, _round_up, _selfcheck_payload,
         snappy_framed_decompress_device, to_device_batch)
@@ -1969,11 +2179,12 @@ def main() -> None:
     full_in = to_device_batch(*_pack(full, CHUNK), dev)
     k_full = snappy_encode.encode(*full_in)
     t0 = time.perf_counter()
-    p_full = snappy_encode.encode_plain(*full_in)
+    p_full = snappy_encode.encode_plain(*full_in, with_steps=True)
     torch.cuda.synchronize()
     t_full_plain = time.perf_counter() - t0
-    for name, k, p in zip(("comp", "comp_lens", "ok"), k_full, p_full):
-        require(torch.equal(k, p), f"encode {name} equal plain on 64 KB rows")
+    for got in (k_full, snappy_encode.encode(*full_in, with_steps=True)):
+        for name, k, p in zip(ENC_OUTPUTS, got, p_full):
+            require(torch.equal(k, p), f"encode {name} equal plain on 64 KB rows")
     require(bool(k_full[2].all()), "every 64 KB row encodes ok")
     encode_err = max(encode_err, int((k_full[0].int() - p_full[0].int()).abs().max()))
     for i, c in enumerate(full):
@@ -1981,7 +2192,8 @@ def main() -> None:
         require(host_snappy.decompress(blob, CHUNK) == c,
                 f"64 KB encode case {i} decodes to its original on the host")
     print(f"snappy encode: {len(full)} chunks of <= {CHUNK} B at width {CHUNK}, "
-          f"kernel == plain (comp, comp_lens, ok), max_abs_err {encode_err}; "
+          f"kernel == plain (comp, comp_lens, ok; with_steps also steps, largest "
+          f"{int(p_full[3].max())} probes), max_abs_err {encode_err}; "
           f"plain {t_full_plain:.2f} s (host clock)")
 
     print("== LZ4 and xxh32 kernels against plain on the card", flush=True)
@@ -1990,11 +2202,12 @@ def main() -> None:
     lz4_full_in = to_device_batch(lz4_full_buf, lz4_full_lens, dev)
     k_lz = lz4_encode.encode(*lz4_full_in)
     t0 = time.perf_counter()
-    p_lz = lz4_encode.encode_plain(*lz4_full_in)
+    p_lz = lz4_encode.encode_plain(*lz4_full_in, with_steps=True)
     torch.cuda.synchronize()
     t_lz_plain = time.perf_counter() - t0
-    for name, k, p in zip(("comp", "comp_lens", "ok"), k_lz, p_lz):
-        require(torch.equal(k, p), f"lz4 encode {name} equal plain on 64 KB rows")
+    for got in (k_lz, lz4_encode.encode(*lz4_full_in, with_steps=True)):
+        for name, k, p in zip(ENC_OUTPUTS, got, p_lz):
+            require(torch.equal(k, p), f"lz4 encode {name} equal plain on 64 KB rows")
     require(bool(k_lz[2].all()), "every 64 KB row encodes ok in LZ4")
     lz4_encode_err = int((k_lz[0].int() - p_lz[0].int()).abs().max())
     lz4_full_blobs = [k_lz[0][i, :int(k_lz[1][i])].cpu().numpy().tobytes()
@@ -2011,10 +2224,14 @@ def main() -> None:
     top = steps_against_plain("lz4 encode", lz4_encode.encode, lz4_encode.encode_plain,
                               *enc_in)
     print(f"lz4 encode: {len(lz4_full)} chunks of <= {CHUNK} B at width {CHUNK}, "
-          f"kernel == plain (comp, comp_lens, ok), max_abs_err {lz4_encode_err}; "
+          f"kernel == plain (comp, comp_lens, ok; with_steps also steps, largest "
+          f"{int(p_lz[3].max())} probes), max_abs_err {lz4_encode_err}; "
           f"host decoder round trip ok; plain {t_lz_plain:.2f} s (host clock); "
           f"with_steps == plain on the {len(enc_cases)} chunks of <= {ENC_CUT} B "
           f"(largest {top} probes)")
+    enc_round_errs = encode_rounds_against_plain(dev)
+    encode_err = max(encode_err, enc_round_errs["snappy_encode"])
+    lz4_encode_err = max(lz4_encode_err, enc_round_errs["lz4_encode"])
 
     lz4_raws = ([c for _, c in synthetic_cases()] + [lz4_length_edges_case()]
                 + [_selfcheck_payload(seed) for seed in (0xA1C0, 1)])
@@ -2331,6 +2548,11 @@ def main() -> None:
           f"(limit {LZ4_RATIO_LIMIT}; host compressor {t_lz4_host16:.2f} s)")
     print(f"LZ4 path launches {lz4_counts}, rows {lz4_rows} ({n_lz4} chunks)")
 
+    print("== encode kernels with steps on the corpus, against plain", flush=True)
+    chains = encode_chains_against_plain(raw, raw_lens)
+    encode_err = max(encode_err, chains["snappy"]["err"])
+    lz4_encode_err = max(lz4_encode_err, chains["lz4"]["err"])
+
     zp = zstd_decode_path(dev, corpus)
     lp = lzo_path(dev, corpus)
     dp = deflate_path(dev, corpus)
@@ -2430,6 +2652,27 @@ def main() -> None:
             (big_raw.shape[0], lze_big_ms, raw_big, lz4_enc_bound(raw_big, big_raw.shape[0]))):
         print(f"lz4 encode, {b} chunks ({nbytes} B in): kernel {ms:.4f} ms "
               f"({gbps(nbytes, ms):.3f} GB/s in), bound {bnd:.5f} ms")
+    carveouts = {}
+    for codec, mod in _enc_modules():  # fixed carveouts, then the wrapper's choice again
+        by_batch, carveouts[codec] = mod.encode_carveout, {}
+        for pct in ENC_CARVEOUTS:
+            mod.encode_carveout = lambda batch, device, pct=pct: pct
+            carveouts[codec][pct] = (time_ms(lambda: mod.encode(raw, raw_lens), 5),
+                                     time_ms(lambda: mod.encode(big_raw, big_raw_lens), 3))
+        mod.encode_carveout = by_batch
+        print(f"{codec} encode by carveout (percent: ms at {N_CHUNKS}, ms at "
+              f"{big_raw.shape[0]} chunks; the wrapper's by the batch: "
+              f"{encode_carveout(N_CHUNKS, dev)}, {encode_carveout(big_raw.shape[0], dev)}): "
+              + "; ".join(f"{pct}%: {a:.4f}, {b:.4f}" for pct, (a, b) in carveouts[codec].items()))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for codec, ms256, ms_big in (("snappy", enc256_ms, enc_big_ms),
+                                 ("lz4", lze256_ms, lze_big_ms)):
+        ch = chains[codec]
+        print(f"{codec} encode: {ms256 * 1e6 / ch['probes']:.1f} ns a probe of the longest "
+              f"chain (chunk {ch['chunk']}, {ch['probes']} probes, {ch['matches']} matches) "
+              f"at {N_CHUNKS} chunks; {ms_big * 1e6 * sms / (ch['total'] * SUSTAIN):.2f} ns a "
+              f"probe of an SM (all {ch['total'] * SUSTAIN} probes over {sms} SMs) at "
+              f"{big_raw.shape[0]}")
     print(f"lz4 decode, {N_CHUNKS} chunks ({raw256} B out): kernel {lzd_ms:.4f} ms "
           f"({gbps(raw256, lzd_ms):.3f} GB/s), plain {lzd_plain_ms:.4f} ms, bound "
           f"{dec_bound(lz4_comp_bytes, N_CHUNKS):.5f} ms")
@@ -2501,6 +2744,8 @@ def main() -> None:
          "ms": enc_ms, "plain_ms": enc_plain_ms,
          "bound_ms": enc_bound(full_bytes, len(full)), "bound_by": "bytes",
          "library_ms": None, "batch": f"{len(full)} chunks of <= {CHUNK} B",
+         "redesigned": ENC_REDESIGN, "longest_chain_steps": chains["snappy"]["probes"],
+         "carveout_ms": carveouts["snappy"],
          "chunks_ms": enc256_ms, "chunks_bound_ms": enc_bound(raw256, N_CHUNKS),
          "tiled_chunks": big_raw.shape[0], "tiled_ms": enc_big_ms,
          "tiled_bound_ms": enc_bound(raw_big, big_raw.shape[0])},
@@ -2520,6 +2765,8 @@ def main() -> None:
          "ms": lze_ms, "plain_ms": lze_plain_ms,
          "bound_ms": lz4_enc_bound(lz4_full_bytes, len(lz4_full)), "bound_by": "bytes",
          "library_ms": None, "batch": f"{len(lz4_full)} chunks of <= {CHUNK} B",
+         "redesigned": ENC_REDESIGN, "longest_chain_steps": chains["lz4"]["probes"],
+         "carveout_ms": carveouts["lz4"],
          "chunks_ms": lze256_ms, "chunks_bound_ms": lz4_enc_bound(raw256, N_CHUNKS),
          "tiled_chunks": big_raw.shape[0], "tiled_ms": lze_big_ms,
          "tiled_bound_ms": lz4_enc_bound(raw_big, big_raw.shape[0])},

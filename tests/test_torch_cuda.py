@@ -36,6 +36,7 @@ from chip_smoke import (
     XXH_SEEDS,
     backward_cap_case, deflate_cases, deflate_malformed_cases, deflate_slot_cases,
     deflate_window_cases, dfast_cases, dfast_collision_case, dfast_in_round_case,
+    encode_round_cases, full_cases, generated_corpus, lz4_full_cases,
     lz4_length_edges_case, lz4_malformed_cases, lzo_cases, snappy_window_cases,
     zstd_cases, zstd_full_cases, zstd_malformed_cases)
 
@@ -620,3 +621,39 @@ def test_deflate_decode_kernel_window_and_slot_cases(device, rows, out_cap):
     for g, w in zip(got, want):
         assert torch.equal(g, w.repeat(reps, *[1] * (w.dim() - 1)))
     assert bool(want[2].all()) or out_cap < 65536
+
+
+_ENCODERS = {"snappy": snappy_encode, "lz4": lz4_encode}
+
+
+@pytest.mark.parametrize("rows", [3, 793])
+@pytest.mark.parametrize("codec", list(_ENCODERS))
+def test_encode_kernel_rounds_with_steps(device, codec, rows):
+    """The round chunks of chip_smoke.encode_round_cases (an in-round hash
+    collision, an in-round hit, a write past the hit, the step growing, a
+    round cut by the find limit, the match limit at each byte of a lane's
+    window), tiled past one wave at 793 rows: kernel == plain on all four
+    outputs, and the three outputs as with steps off."""
+    mod = _ENCODERS[codec]
+    chunks = [c for _, c in encode_round_cases(codec)]
+    tiled = (chunks * (rows // len(chunks) + 1))[:rows]
+    data, lens = to_device_batch(*_pack(tiled, 8193), device)
+    got = mod.encode(data, lens, with_steps=True)
+    for g, w in zip(got, mod.encode_plain(data, lens, with_steps=True)):
+        assert g.device.type == "cuda"
+        assert torch.equal(g, w)
+    for g, w in zip(got, mod.encode(data, lens)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("codec", list(_ENCODERS))
+def test_encode_kernel_with_steps_on_64kb_rows(device, codec):
+    """The 64 KB rows of chip_smoke's encode comparison: kernel == plain on
+    all four outputs with steps on."""
+    mod = _ENCODERS[codec]
+    rows = (full_cases if codec == "snappy" else lz4_full_cases)(generated_corpus())
+    data, lens = to_device_batch(*_pack(rows, 65536), device)
+    got = mod.encode(data, lens, with_steps=True)
+    for g, w in zip(got, mod.encode_plain(data, lens, with_steps=True)):
+        assert torch.equal(g, w)
+    assert int(got[3].max()) > 1000
