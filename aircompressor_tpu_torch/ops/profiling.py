@@ -15,7 +15,9 @@ BenchmarkCount/JMH analogue):
   its longest chain, and ``ns_per_iteration`` is the time over that chain.
   It needs a CUDA device and raises without one: there is no CPU path.
 - ``trace(outdir)`` wraps ``torch.profiler`` (the CPU, and the card when
-  there is one) and writes a Chrome trace into ``outdir``.
+  there is one) and writes a Chrome trace into ``outdir``;
+  ``kernel_ms(fn, kernel, reps, outdir)`` reads one kernel's mean device
+  time from such a trace.
 
 CLI: ``python -m aircompressor_tpu_torch.ops.profiling [outdir]`` prints the
 report as JSON; with ``outdir`` the kernel rows run inside ``trace``.
@@ -184,6 +186,27 @@ def trace(outdir: str):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(path)
+
+
+def kernel_ms(fn, kernel: str, reps: int, outdir: str) -> float:
+    """Mean device time of the CUDA kernels whose name holds ``kernel``
+    over ``reps`` calls of fn (after one warm-up call), from the kernel
+    events of a ``trace`` into ``outdir``: the kernel alone, without the
+    wrapper's allocations, copies and host time. Raises if the trace holds
+    no such kernel."""
+    import json
+
+    fn()
+    with trace(outdir) as path:
+        for _ in range(reps):
+            fn()
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    durs = [e["dur"] for e in events
+            if e.get("cat") == "kernel" and kernel in e.get("name", "")]
+    if not durs:
+        raise RuntimeError(f"the trace holds no kernel named like {kernel!r}")
+    return sum(durs) / len(durs) / 1e3
 
 
 def main(argv=None) -> None:

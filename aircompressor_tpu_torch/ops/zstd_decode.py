@@ -117,9 +117,12 @@ def huffman_decode(src: torch.Tensor, params: torch.Tensor, perm: torch.Tensor,
     ``src`` (N,) uint8 is the flat input, ``params`` (H, 32) int32 one row a
     stream (see H_WORDS), ``perm`` (H, 256) uint8 each stream's canonical
     permutation. Returns ``(lit, rem)``: (lit_size,) uint8 with stream h's
-    nsym bytes at its out_base (a multiple of 8, its slot rounded up to 8
-    bytes inside lit), and (H,) int32 final bit counts, 0 for a stream
-    consumed exactly."""
+    nsym bytes from its out_base (the planner's slots are 128-aligned;
+    every other byte 0), and (H,) int32 final bit counts, 0 for a stream
+    consumed exactly, positive for one with bits left, negative for one
+    read past its start. The kernel decodes a stream with a warp, by
+    synchronised sub-ranges over a decode table in shared memory
+    (``csrc/zstd_huffman.cu``)."""
     global huffman_launches
     _check(src=(src, torch.uint8, None), params=(params, torch.int32, H_WORDS),
            perm=(perm, torch.uint8, 256))

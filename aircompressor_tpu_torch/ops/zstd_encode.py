@@ -29,7 +29,9 @@ host matcher, which would hide a fault of the kernel; ROADMAP F9); a chunk
 over 64 KB raises ValueError; the emission runs once for the batch, not
 once for every 32 chunks.
 
-``emit`` launches ``csrc/zstd_emit.cu`` for CUDA tensors and uses
+``emit`` launches ``csrc/zstd_emit.cu`` for CUDA tensors (five warps a
+block: the Huffman streams packed by warp prefix sums of their code
+lengths, the sequences stream by windows of its FSE walk) and uses
 ``emit_plain`` only for tensors on the CPU. Its inputs are the arrays of
 ``device_enc.pack_plans``; its outputs those of ``_emit_device``: the
 Huffman streams' bytes (B, 4, LSTREAM_CAP) uint8 and bit totals (B, 4)

@@ -46,12 +46,17 @@ The three zstd kernels are first held against their plain versions on a
 batch of frames from the host encoder, the libzstd fixture (multi-block
 frames whose sequences use repeat offsets of earlier blocks) and malformed
 frames, and on a batch of 64 KB corpus chunks through the host encoder at
-level 3, as the zstd path gives them; the LZO and deflate kernels likewise,
+level 3, as the zstd path gives them; the Huffman kernel also on
+hand-made streams (codes of one length, tables of log 11 and 12, a short
+stream, bits left, a stream read past its start, a broken walk) and both
+batches at each launch setting it times and at sub-ranges of 32 and 96
+bits; the LZO and deflate kernels likewise,
 on synthetic, edge, malformed and 64 KB chunks, and the deflate kernel's
 two instantiations (257 and 661 rows) on its window and table-slot cases;
 the DFAST matcher kernel with its step counts on its edge cases, two
 hand-built round chunks (tiled to 3 and 397 rows) and six 64 KB chunks,
-and the emission kernel on their plans; the xxHash kernels at nonzero seeds, and xxh64 at 1, 7 and 257
+and the emission kernel on their plans, a one-sequence plan, a row with
+nseq 0, a row of random fields and an overflowing row; the xxHash kernels at nonzero seeds, and xxh64 at 1, 7 and 257
 rows of 64 KB and 65,531 B; the r2 Snappy decode kernel on 45 rows in two
 groups of 32 (synthetic, malformed and 64 KB corpus blocks) at out_cap
 65536 and 4096, steps included, and each row alone against its own count;
@@ -63,8 +68,11 @@ decode and the Snappy and LZ4 encode kernels, the encoders' also on their
 hand-built round chunks (tiled to 3 and 793 rows), on 64 KB rows and on
 the corpus. It prints the share of the corpus's Snappy and deflate copies
 within each window's reach, the DFAST, deflate and encode kernels' ns a
-step of the corpus's longest chain, and the encode kernels' times at five
-shared-memory carveouts. Every
+step of the corpus's longest chain and the zstd Huffman and emission
+kernels' ns a symbol of the longest stream, the encode kernels' times at
+five shared-memory carveouts and the Huffman kernel's at its launch
+settings, and the Huffman and emission kernels alone (device time from a
+profiler trace) beside their wrappers' times. Every
 byte and hash is checked against the originals and the port's host
 reference codecs. After the times it runs ``profiling.kernel_rows`` and a
 ``profiling.trace`` of both Snappy decode kernels, whose trace file must
@@ -417,6 +425,152 @@ def zstd_full_cases() -> list[bytes]:
     from aircompressor_tpu_torch.ops.batch import _selfcheck_payload
 
     return [bytes(CHUNK)] + [_selfcheck_payload(seed) for seed in (0, 33, 34, 96, 251)]
+
+
+def _huffman_table(weights: list[int]):
+    """The canonical table of explicit Huffman weights (the last implicit)
+    and its walk parameters: (table, rank_start[1..12], cum_syms, perm)."""
+    from aircompressor_tpu_torch.host.zstd import device_prep, huffman
+
+    table = huffman.build_table(np.array(weights, np.int64))
+    rank_start, cum, perm = device_prep._walk_params(table)
+    return table, rank_start[1:13], cum, perm
+
+
+def _huffman_payload(table, syms) -> tuple[bytes, int]:
+    """The backward bitstream that decodes to ``syms`` in order, and its
+    payload bits: each code written least significant bit first, the last
+    symbol's first, then the end-mark bit."""
+    first = {}
+    for i, s in enumerate(table.symbols.tolist()):
+        first.setdefault(s, i)
+    acc = nbits = 0
+    for s in reversed(syms):
+        nb = int(table.num_bits[first[s]])
+        acc |= (first[s] >> (table.table_log - nb)) << nbits
+        nbits += nb
+    return (acc | 1 << nbits).to_bytes(nbits // 8 + 1, "little"), nbits
+
+
+def huffman_lane_cases() -> list[tuple[str, dict]]:
+    """Hand-made Huffman literal streams for the Huffman kernel's lanes:
+    codes of one length (7 bits, which divides no sub-range of these
+    streams, so a lane that starts off a code never meets one on its own),
+    a table of log 11 (codes of 1 to 11 bits), a stream of fewer bits than
+    32 lanes x its table log, one with bits left after nsym, one read past
+    its start (nsym beyond its symbols), a table of log 12 (also read past
+    its start) and a table whose walk finds no code below its first region
+    (rank_start[1] raised, as no planner gives it): those take the kernel's
+    one-lane walk; a stream of no payload bits with 6 symbols, one of
+    100 codes and nsym 0, and two that the kernel's sub-ranges of up to
+    1536 bits take in more than one segment of 32: 7,200 codes of one
+    7-bit length (50,400 bits, two segments) and 10,000 codes of 9 to 11
+    bits drawn alike from a table of log 11 (over 98,304 bits, three).
+    Each case: its payload, rem, nsym, table_log, rank_start[1..12],
+    cum_syms and perm."""
+    rng = np.random.default_rng(23)
+    chain = list(range(11, 0, -1))  # codes of 1..11 bits, two of 11
+
+    def case(weights, n, extra=0, syms=None):
+        table, rs, cum, perm = _huffman_table(weights)
+        alphabet = sorted(set(table.symbols.tolist()))
+        if syms is None:
+            first = [int(np.argmax(table.symbols == s)) for s in alphabet]
+            p = np.array([2.0 ** -int(table.num_bits[i]) for i in first])
+            syms = rng.choice(alphabet, n, p=p / p.sum()).tolist()
+        payload, bits = _huffman_payload(table, syms)
+        return dict(payload=payload, rem=bits, nsym=len(syms) + extra,
+                    table_log=table.table_log, rank_start=rs, cum=cum, perm=perm)
+
+    zero = int(_huffman_table(chain)[0].symbols[0])  # its code: 11 zero bits
+    syms = rng.choice([s for s in range(12) if s != zero], 400).tolist()
+    syms[150] = zero  # where the broken walk sticks
+    broken = case(chain, 0, syms=syms)
+    broken["rank_start"] = broken["rank_start"].copy()
+    broken["rank_start"][0] = 5
+    empty = case(chain[4:], 0, syms=[])  # no payload bits: every symbol past the start
+    empty["nsym"] = 6
+    table = _huffman_table(chain)[0]
+    long_codes = sorted({s for s, nb in zip(table.symbols.tolist(), table.num_bits.tolist())
+                         if nb >= 9})
+    return [
+        ("one length", case([1] * 127, 1200)),
+        ("log 11", case(chain, 3000)),
+        ("short", case(chain[4:], 20)),
+        ("bits left", case(chain[3:], 500, extra=-5)),
+        ("read past start", case(chain[3:], 300, extra=9)),
+        ("log 12", case(list(range(12, 0, -1)), 1000)),
+        ("log 12 read past start", case(list(range(12, 0, -1)), 200, extra=7)),
+        ("no code below rank_start[1]", broken),
+        ("no payload bits", empty),
+        ("no symbols", case(chain[4:], 100, extra=-100)),
+        ("one length, two segments", case([1] * 127, 7200)),
+        ("log 11, three segments", case(chain, 0, syms=rng.choice(long_codes, 10000).tolist())),
+    ]
+
+
+def one_sequence_case() -> bytes:
+    """600 random bytes of 64 values and a repeat of their first 100: one
+    sequence, with literals the emission codes."""
+    head = np.random.default_rng(1).integers(0, 64, 600, dtype=np.uint8).tobytes()
+    return head + head[:100]
+
+
+def emit_edge_rows(packed: dict) -> tuple[dict, dict]:
+    """Rows for the emission's edge cases from a batch of ``pack_plans``:
+    its first row with nseq 0 (only the end mark in the sequences stream),
+    and a row of random fields that reach every clamp (segments that start
+    before the literals or run past them, codes outside the tables, widths
+    below 0 and above 31, table entries out of range) without overflowing;
+    and apart, a row whose streams overflow their capacities (16,384
+    literals of 31-bit codes, 8,192 sequences of 31-bit states and extras)."""
+    rng = np.random.default_rng(31)
+    ints = lambda lo, hi, shape: rng.integers(lo, hi, shape, dtype=np.int64).astype(np.int32)  # noqa: E731
+    empty = {k: v[:1].copy() for k, v in packed.items()}
+    empty["nseq"][:] = 0
+    junk = {
+        "lit": rng.integers(0, 256, (1, 65536), dtype=np.uint8),
+        "lit_seg": np.array([[[-100, 3000], [60000, 9000], [100, 16384], [5, -5]]], np.int32),
+        "huff": np.stack([ints(-2**31, 2**31, (1, 256)), ints(-2, 12, (1, 256))], 1),
+        "seq": np.concatenate([ints(-3, 70, (1, 3, 8192)), ints(-2**31, 2**31, (1, 3, 8192)),
+                               ints(-2, 40, (1, 3, 8192))], 1),
+        "nseq": np.array([1500], np.int32),
+        "fse_sym": np.stack([ints(-2**17, 2**17, (1, 3, 64)), ints(-600, 600, (1, 3, 64))], 2),
+        "fse_ns": ints(0, 2**16, (1, 3, 512)),
+        "flush_bits": np.array([[9, 40, -1]], np.int32),
+    }
+    edge = {k: np.concatenate([empty[k], junk[k]]) for k in packed}
+    over = {k: np.zeros_like(v[:1]) for k, v in packed.items()}
+    over["lit_seg"][0, 0] = [0, 16384]
+    over["huff"][0, 0], over["huff"][0, 1] = ints(0, 2**31, 256), 31
+    over["seq"][0, 3:6], over["seq"][0, 6:9] = ints(0, 2**31, (3, 8192)), 31
+    over["fse_sym"][0, :, 0] = 31 << 16  # states of 31 bits
+    over["nseq"][0] = 8192
+    return edge, over
+
+
+def huffman_lane_batch(cases, device, lead: int = 3):
+    """The Huffman kernel's arguments for ``huffman_lane_cases``: the
+    payloads in one flat input, each at an odd byte offset after ``lead``
+    bytes of noise and 1 to 3 bytes between, each stream's slot 128-aligned
+    and rounded up to 128; (src, params, perm, lit_size) on ``device``."""
+    from aircompressor_tpu_torch.ops import zstd_decode
+
+    rng = np.random.default_rng(29)
+    src = bytearray(rng.integers(0, 256, lead, dtype=np.uint8).tobytes())
+    params = np.zeros((len(cases), zstd_decode.H_WORDS), np.int32)
+    perm = np.zeros((len(cases), 256), np.uint8)
+    out = 0
+    for h, (_, c) in enumerate(cases):
+        params[h, :5] = [len(src), c["rem"], c["nsym"], out, c["table_log"]]
+        params[h, zstd_decode.H_RANK_START:zstd_decode.H_RANK_START + 12] = c["rank_start"]
+        params[h, zstd_decode.H_CUM_SYMS:zstd_decode.H_CUM_SYMS + 12] = c["cum"]
+        perm[h] = c["perm"]
+        src += c["payload"] + rng.integers(0, 256, 1 + h % 3, dtype=np.uint8).tobytes()
+        out += -(-max(c["nsym"], 1) // 128) * 128
+    src += bytes(zstd_decode.SRC_PAD)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return t(np.frombuffer(bytes(src), np.uint8).copy()), t(params), t(perm), out
 
 
 def dfast_repeat_case() -> bytes:
@@ -1133,6 +1287,9 @@ def zstd_kernels_against_plain(dev) -> dict:
     full_errs, t_full_plain, full_offset = zstd_plain_check(full_pk)
     errs = {k: max(v, full_errs[k]) for k, v in errs.items()}
 
+    errs["zstd_huffman"] = max(errs["zstd_huffman"],
+                               huffman_lanes_against_plain(dev, (pk, full_pk)))
+
     res, full_res = zstd_decode.decode_plan(pk), zstd_decode.decode_plan(full_pk)
     ok, checksum_ok = res["ok"].tolist(), res["checksum_ok"].tolist()
     lens = res["out_len"].tolist()
@@ -1166,6 +1323,30 @@ def zstd_kernels_against_plain(dev) -> dict:
           f"plain versions {t_full_plain:.2f} s (host clock); max_abs_err over both "
           f"batches {errs}")
     return dict(n_frames=len(items), plan=plan, pk=pk, errs=errs)
+
+
+def huffman_lanes_against_plain(dev, packed) -> int:
+    """Hold the Huffman kernel to its plain version, ``lit`` and ``rem``, on
+    the hand-made lane streams (``huffman_lane_cases``, two of them of
+    three segments) and on the ``packed`` batches; return the
+    max_abs_err."""
+    from aircompressor_tpu_torch.ops import zstd_decode
+
+    cases = huffman_lane_cases()
+    batches = [huffman_lane_batch(cases, dev)] + [
+        (pk.src, pk.h_params, pk.h_perm, pk.lit_size) for pk in packed]
+    err = 0
+    for b, args in enumerate(batches):
+        want = zstd_decode.huffman_decode_plain(*args)
+        got = zstd_decode.huffman_decode(*args)
+        torch.cuda.synchronize()
+        for name, a, w in zip(("lit", "rem"), got, want):
+            require(torch.equal(a, w), f"zstd_huffman {name} equal plain on batch {b}")
+            err = max(err, int((a.long() - w.long()).abs().max()) if a.numel() else 0)
+    print(f"zstd_huffman: the lane cases ({', '.join(n for n, _ in cases)}; rem "
+          f"{zstd_decode.huffman_decode_plain(*batches[0])[1].tolist()}) and both batches: "
+          f"kernel == plain on lit and rem, max_abs_err {err}")
+    return err
 
 
 def zstd_args(pk) -> tuple:
@@ -1251,6 +1432,21 @@ def zstd_decode_path(dev, corpus: list[bytes], sustain: int = SUSTAIN) -> dict:
                 decoded_bytes=int(big_lens.sum()), frames=frames, t_encode=t_encode)
 
 
+def alone_ms(fn, kernel: str, batches):
+    """The kernel alone at each of three batches (device time from a
+    profiler trace, without the wrapper's allocations, copies and host
+    time): the kernels JSON's kernel_ms, chunks_kernel_ms and
+    tiled_kernel_ms."""
+    from aircompressor_tpu_torch import _build
+    from aircompressor_tpu_torch.ops import profiling
+
+    out = _build.BUILD_DIR.parent / "profile" / kernel
+    times = [profiling.kernel_ms(lambda: fn(*args), kernel, 5, str(out)) for args in batches]
+    print(f"{kernel} alone (profiler device time): " + ", ".join(f"{t:.4f}" for t in times)
+          + " ms at the three batches")
+    return dict(zip(("kernel_ms", "chunks_kernel_ms", "tiled_kernel_ms"), times))
+
+
 def zstd_kernel_times(zk: dict, zp: dict) -> list[dict]:
     """Time each zstd kernel by CUDA events on the comparison batch (beside
     its plain version, in turns), on the corpus's frames and on the tiled
@@ -1275,6 +1471,16 @@ def zstd_kernel_times(zk: dict, zp: dict) -> list[dict]:
               f"plain {plain_ms:.4f} ms, bound {b_small:.5f} ms; {n_mid} frames: kernel "
               f"{ms_mid:.4f} ms, bound {b_mid:.5f} ms; {n_big} frames: kernel "
               f"{ms_big:.4f} ms, bound {b_big:.5f} ms")
+        extra = {}
+        if name == "zstd_huffman":
+            extra = {"redesigned": "PR 11", **alone_ms(fn, "huffman_kernel", (small, mid, big))}
+            longest = max(h.nsym for h in zp["plan"].huff_streams)
+            total = sum(h.nsym for h in zp["big_plan"].huff_streams)
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            print(f"zstd_huffman: {ms_mid * 1e6 / longest:.1f} ns a symbol of the longest "
+                  f"stream ({longest} symbols) at {n_mid} frames; "
+                  f"{ms_big * 1e6 * sms / total:.3f} ns a symbol of an SM (all {total} "
+                  f"symbols over {sms} SMs) at {n_big}")
         entries.append({
             "name": name, "route": "cuda", "source": f"aircompressor_tpu_torch/csrc/{name}.cu",
             "replaces": f"aircompressor_tpu/ops/zstd_pallas.py:{line}",
@@ -1282,7 +1488,7 @@ def zstd_kernel_times(zk: dict, zp: dict) -> list[dict]:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_small, "bound_by": "bytes",
             "library_ms": None, "batch": f"{n_small} frames of <= 16 KB",
             "chunks": n_mid, "chunks_ms": ms_mid, "chunks_bound_ms": b_mid,
-            "tiled_chunks": n_big, "tiled_ms": ms_big, "tiled_bound_ms": b_big})
+            "tiled_chunks": n_big, "tiled_ms": ms_big, "tiled_bound_ms": b_big, **extra})
     print(f"zstd huffman + fse + execute, {len(zp['big_plan'].frames)} frames: "
           f"{gbps(zp['decoded_bytes'], total_big):.3f} GB/s decoded (kernels alone; the "
           f"host planner took {zp['t_plan_big']:.3f} s)")
@@ -1351,17 +1557,22 @@ def zstd_encode_kernels_against_plain(dev) -> dict:
     plans3 = zstd_encode.plan(chunks, 3, pres)
     plans = [q for q in plans3 + zstd_encode.plan(chunks, 1, [None] * len(chunks))
              if q.device]
+    plans.append(device_enc._plan_chunk(one_sequence_case(), 3))
+    require(plans[-1].device, "the one-sequence chunk reaches the emission")
     packed = device_enc.pack_plans(plans)
-    args = [torch.from_numpy(packed[name]).to(dev) for name, _, _ in zstd_encode.EMIT_INPUTS]
+    edge_rows, over = emit_edge_rows(packed)
+    packed_all = {k: np.concatenate([v, edge_rows[k]]) for k, v in packed.items()}
+    args = [torch.from_numpy(packed_all[name]).to(dev) for name, _, _ in zstd_encode.EMIT_INPUTS]
     ke = zstd_encode.emit(*args)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pe = zstd_encode.emit_plain(*args)
     torch.cuda.synchronize()
     t_emit_plain = time.perf_counter() - t0
-    for name, a, b in zip(("lit_bytes", "lit_tot", "seq_bytes", "seq_tot"), ke, pe):
+    for name, a, b in zip(EMIT_OUTPUTS, ke, pe):
         require(torch.equal(a, b), f"zstd_emit {name} equal plain")
     emit_err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(ke, pe))
+    emit_err = max(emit_err, emit_overflow_against_plain(dev, over))
     nseq = k[3].tolist()
     print(f"zstd_dfast: {len(chunks)} chunks ({len(edge)} of <= {DFAST_CUT} B, "
           f"{len(chunks) - len(edge)} of 64 KB) at width {data.shape[1]}: sequences "
@@ -1369,10 +1580,11 @@ def zstd_encode_kernels_against_plain(dev) -> dict:
           f"max_abs_err {dfast_err}; every proposal passes the host check; plain "
           f"{t_dfast_plain:.2f} s (host clock)")
     print(f"zstd_emit: {len(plans)} planned blocks (level 3 from the kernel's proposals "
-          f"and level 1 from the host matcher), up to {int(packed['nseq'].max())} "
-          f"sequences and {int(packed['lit_seg'][:, :, 1].sum(1).max())} literals: "
-          f"kernel == plain on all four outputs, max_abs_err {emit_err}; plain "
-          f"{t_emit_plain:.2f} s (host clock)")
+          f"and level 1 from the host matcher, and the one-sequence chunk), sequences "
+          f"{sorted(packed['nseq'].tolist())} and up to "
+          f"{int(packed['lit_seg'][:, :, 1].sum(1).max())} literals, a row with nseq 0 and "
+          f"one of random fields: kernel == plain on all four outputs, max_abs_err "
+          f"{emit_err}; plain {t_emit_plain:.2f} s (host clock)")
     # The six 64 KB chunks alone, for the kernels' times at that shape.
     full = slice(len(edge), None)
     full_plans = [q for q in plans3[full] if q.device]
@@ -1385,6 +1597,37 @@ def zstd_encode_kernels_against_plain(dev) -> dict:
 
 
 DFAST_OUTPUTS = ("ll", "ml", "of", "nseq", "last_lit", "ok", "steps")
+EMIT_OUTPUTS = ("lit_bytes", "lit_tot", "seq_bytes", "seq_tot")
+
+
+def emit_overflow_against_plain(dev, over: dict) -> int:
+    """The overflowing row: the emission and its plain version both raise,
+    and with the overflow check off they agree on all four outputs (the
+    stores past each capacity dropped, the bits counted); return the
+    max_abs_err."""
+    from aircompressor_tpu_torch.ops import zstd_encode
+
+    args = [torch.from_numpy(over[name]).to(dev) for name, _, _ in zstd_encode.EMIT_INPUTS]
+    for fn in (zstd_encode.emit, zstd_encode.emit_plain):
+        try:
+            fn(*args)
+        except RuntimeError as e:
+            require("overflowed a stream of row 0" in str(e), f"overflow raises: {e}")
+        else:
+            require(False, f"{fn.__name__} raises on the overflowing row")
+    check, zstd_encode._check_totals = zstd_encode._check_totals, lambda *a: None
+    try:
+        k, p = zstd_encode.emit(*args), zstd_encode.emit_plain(*args)
+        torch.cuda.synchronize()
+    finally:
+        zstd_encode._check_totals = check
+    for name, a, b in zip(EMIT_OUTPUTS, k, p):
+        require(torch.equal(a, b), f"zstd_emit {name} equal plain on the overflowing row")
+    require(int(k[1][0, 0]) > 8 * zstd_encode.LSTREAM_CAP
+            and int(k[3][0]) > 8 * zstd_encode.SSTREAM_CAP, "both streams overflow")
+    print(f"zstd_emit: the overflowing row raises in both; with the check off kernel == "
+          f"plain (bit totals {k[1][0].tolist()}, {int(k[3][0])})")
+    return max(int((a.long() - b.long()).abs().max()) for a, b in zip(k, p))
 
 
 def dfast_rounds_against_plain(dev, edge: list[bytes], plain, n_edge: int) -> int:
@@ -1532,10 +1775,10 @@ def zstd_compress_path(dev, corpus: list[bytes], host_frames: list[bytes],
     e_big = zstd_encode.emit(*big_args)
     torch.cuda.synchronize()
     t_emit_big = time.perf_counter() - t0
-    for name, a, b in zip(("lit_bytes", "lit_tot", "seq_bytes", "seq_tot"), e_big, e256):
+    for name, a, b in zip(EMIT_OUTPUTS, e_big, e256):
         require(torch.equal(a, b.repeat(sustain, *[1] * (b.dim() - 1))),
                 f"tiled zstd_emit {name} equals the 256-row output tiled")
-    for name, a in zip(("lit_bytes", "lit_tot", "seq_bytes", "seq_tot"), e256):
+    for name, a in zip(EMIT_OUTPUTS, e256):
         require(np.array_equal(a.cpu().numpy(), emitted[name]), f"emission {name} repeats")
 
     print(f"ZstdBatchCodec(level=3).compress_chunks: {n} chunks, {sum(map(len, corpus))} B "
@@ -1598,6 +1841,15 @@ def zstd_encode_times(zek: dict, zc: dict) -> list[dict]:
                   f"chain ({chain['steps']} steps) at {rows[1]} chunks; "
                   f"{ms_big * 1e6 * sms / (chain['total'] * SUSTAIN):.2f} ns a step of an SM "
                   f"(all {chain['total'] * SUSTAIN} steps over {sms} SMs) at {rows[2]}")
+        if name == "zstd_emit":
+            segs = zc["packed"]["lit_seg"][:, :, 1]
+            longest, total = int(segs.max()), int(segs.sum()) * SUSTAIN
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            print(f"zstd_emit: {ms_mid * 1e6 / longest:.1f} ns a symbol of the longest Huffman "
+                  f"segment ({longest} symbols; up to {int(zc['packed']['nseq'].max())} "
+                  f"sequences a row) at {rows[1]} rows; "
+                  f"{ms_big * 1e6 * sms / total:.3f} ns a Huffman symbol of an SM (all {total} "
+                  f"over {sms} SMs) at {rows[2]}")
         entry = {
             "name": name, "route": "cuda", "source": f"aircompressor_tpu_torch/csrc/{src}.cu",
             "replaces": line, "launches": zc["counts"][name],
@@ -1608,6 +1860,8 @@ def zstd_encode_times(zek: dict, zc: dict) -> list[dict]:
             "tiled_chunks": rows[2], "tiled_ms": ms_big, "tiled_bound_ms": bounds[2]}
         if name == "zstd_emit":
             entry["note"] = "the JAX package's emission is XLA, not a Pallas kernel"
+            entry["redesigned"] = "PR 11"
+            entry.update(alone_ms(fn, "zstd_emit_kernel", (small, mid, big)))
         else:
             entry["redesigned"] = "rounds of 32 probes over the shared-memory tables"
             entry["longest_chain_steps"] = zc["chain"]["steps"]

@@ -36,8 +36,9 @@ from chip_smoke import (
     XXH_SEEDS,
     backward_cap_case, deflate_cases, deflate_malformed_cases, deflate_slot_cases,
     deflate_window_cases, dfast_cases, dfast_collision_case, dfast_in_round_case,
-    encode_round_cases, full_cases, generated_corpus, lz4_full_cases,
-    lz4_length_edges_case, lz4_malformed_cases, lzo_cases, snappy_window_cases,
+    emit_edge_rows, encode_round_cases, full_cases, generated_corpus, huffman_lane_batch,
+    huffman_lane_cases, lz4_full_cases, lz4_length_edges_case, lz4_malformed_cases,
+    lzo_cases, one_sequence_case, snappy_window_cases,
     zstd_cases, zstd_full_cases, zstd_malformed_cases)
 
 pytestmark = pytest.mark.cuda
@@ -263,6 +264,19 @@ def test_zstd_huffman_kernel_equals_plain(device):
     assert int((got[1] != 0).sum()) == 2  # the short stream and the one after it
 
 
+def test_zstd_huffman_kernel_on_the_lane_cases(device):
+    """Codes of one length, a table of log 11, a short stream, bits left,
+    a stream read past its start, a table of log 12, a broken walk, and
+    streams of two and three segments; then the zstd batch."""
+    _, pk = _zstd_batch(device)
+    for args in (huffman_lane_batch(huffman_lane_cases(), device),
+                 (pk.src, pk.h_params, pk.h_perm, pk.lit_size)):
+        got = zstd_decode.huffman_decode(*args)
+        for g, w in zip(got, zstd_decode.huffman_decode_plain(*args)):
+            assert g.device.type == "cuda"
+            assert torch.equal(g, w)
+
+
 def test_zstd_fse_kernel_equals_plain(device):
     _, pk = _zstd_batch(device)
     args = (pk.src, pk.s_params, pk.s_tabs, pk.s_frames, pk.seq_slots)
@@ -423,6 +437,24 @@ def test_zstd_emit_kernel_equals_plain(device):
     for g, w in zip(got, zstd_encode.emit_plain(*args)):
         assert g.device.type == "cuda"
         assert torch.equal(g, w)
+
+
+def test_zstd_emit_kernel_on_the_edge_rows(device, monkeypatch):
+    """One sequence, nseq 0, random fields inside the clamps; then a row
+    that overflows: both raise, and with the check off they agree."""
+    plans = [device_enc._plan_chunk(c, 3) for c in (one_sequence_case(), _selfcheck_payload(7))]
+    packed = device_enc.pack_plans(plans)
+    edge, over = emit_edge_rows(packed)
+    for rows in ({k: np.concatenate([v, edge[k]]) for k, v in packed.items()}, over):
+        args = [torch.from_numpy(rows[name]).to(device) for name, _, _ in zstd_encode.EMIT_INPUTS]
+        if rows is over:
+            for fn in (zstd_encode.emit, zstd_encode.emit_plain):
+                with pytest.raises(RuntimeError, match="overflowed a stream of row 0"):
+                    fn(*args)
+            monkeypatch.setattr(zstd_encode, "_check_totals", lambda *a: None)
+        for g, w in zip(zstd_encode.emit(*args), zstd_encode.emit_plain(*args)):
+            assert g.device.type == "cuda"
+            assert torch.equal(g, w)
 
 
 def test_zstd_compress_round_trip_on_device(device, synthetic):

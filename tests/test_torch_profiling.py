@@ -1,6 +1,6 @@
 """The port's profiling module: the host match-length grid against the JAX
-package's, ``kernel_rows`` refusing to run without a card, and ``trace``
-writing a Chrome trace."""
+package's, ``kernel_rows`` refusing to run without a card, ``trace``
+writing a Chrome trace and ``kernel_ms`` reading one."""
 
 import json
 
@@ -51,6 +51,34 @@ def test_trace_writes_a_chrome_trace(tmp_path):
         torch.arange(10000).sum()
     events = json.loads(open(path).read())["traceEvents"]
     assert any(e.get("name", "").startswith("aten::sum") for e in events)
+
+
+def test_kernel_ms_reads_kernel_events_and_raises_without_one(tmp_path, monkeypatch):
+    """The mean ``dur`` of the trace's kernel events whose name holds the
+    kernel's, in ms; none (as on the CPU) raises."""
+    with pytest.raises(RuntimeError, match="no kernel named like 'huffman_kernel'"):
+        profiling.kernel_ms(lambda: torch.arange(100).sum(), "huffman_kernel", 2,
+                            str(tmp_path / "cpu"))
+    events = [{"cat": "kernel", "name": "void (anonymous namespace)::huffman_kernel(int)",
+               "dur": 30.0},
+              {"cat": "kernel", "name": "huffman_kernel", "dur": 50.0},
+              {"cat": "kernel", "name": "vectorized_elementwise_kernel", "dur": 7.0},
+              {"cat": "cpu_op", "name": "huffman_kernel", "dur": 900.0}]
+
+    class FakeProfile:
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def export_chrome_trace(self, path):
+            with open(path, "w") as f:
+                json.dump({"traceEvents": events}, f)
+
+    monkeypatch.setattr(torch.profiler, "profile", lambda **_: FakeProfile())
+    assert profiling.kernel_ms(lambda: None, "huffman_kernel", 2,
+                               str(tmp_path / "fake")) == pytest.approx(0.04)
 
 
 def test_decode_bound_counts_bytes_at_the_memory_rate():
