@@ -23,7 +23,13 @@ rejected before the loop. The JAX kernel's ``steps`` count its TPU loop
 bodies; the port counts its own loop.
 
 ``decode`` launches ``csrc/lzo_decode.cu`` for a CUDA tensor and uses
-``decode_plain`` only for a tensor on the CPU.
+``decode_plain`` only for a tensor on the CPU. The kernel keeps each
+chunk's recent output in a shared-memory window (``WINDOWS``; two
+instantiations of one template): 32 KB up to ``SMALL_BATCH`` chunks, 4 KB
+above, so that 4096 chunks fit the card in one wave. ``copy_reach`` (the
+farthest match distance the kernel reads from its window) and
+``distance_shares`` (the share of matches, and of their bytes, within a
+reach) describe that choice on real data.
 """
 
 from __future__ import annotations
@@ -37,6 +43,21 @@ from ._rows import MAX_CHUNK as MAX_OUT, check_decode_args, put
 # kernel was used. Only a launch of the CUDA kernel adds to them.
 launches = 0
 rows = 0
+
+WINDOWS = (4096, 32768)  # the kernel's output windows, in bytes
+SMALL_BATCH = 792  # the most chunks that take the 32 KB window (kSmallBatchChunks)
+
+
+def step_bytes(window: int) -> int:
+    """The most output bytes one step of the kernel moves with a window of
+    this size (kStep)."""
+    return window // 16
+
+
+def copy_reach(window: int) -> int:
+    """The farthest match distance the kernel reads from a window of this
+    size; a farther match reads device memory."""
+    return window - step_bytes(window)
 
 
 def decode(comp: torch.Tensor, comp_lens: torch.Tensor,
@@ -69,6 +90,32 @@ def decode(comp: torch.Tensor, comp_lens: torch.Tensor,
     return result + (steps,) if with_steps else result
 
 
+def distance_shares(comp: torch.Tensor, comp_lens: torch.Tensor,
+                    reaches=tuple(copy_reach(w) for w in WINDOWS)) -> dict:
+    """For each reach, the share of the matches of every chunk's command
+    chain (those moved before its failing step, if any) whose dist is at
+    most that reach, and the share of their output bytes; with the counts
+    behind them."""
+    comp, comp_lens = check_decode_args(comp, comp_lens, MAX_OUT)
+    dists, lengths = [], []
+
+    def on_match(match, dist, length):
+        dists.append(dist[match])
+        lengths.append(length[match])
+
+    _plain(comp, comp_lens, 1, False, on_match)
+    dist = torch.cat(dists) if dists else torch.zeros(0, dtype=torch.int64)
+    length = torch.cat(lengths) if lengths else torch.zeros(0, dtype=torch.int64)
+    n_matches, n_bytes = int(dist.numel()), int(length.sum())
+    shares = {}
+    for reach in reaches:
+        near = dist <= reach
+        shares[reach] = {
+            "matches": int(near.sum()) / n_matches if n_matches else 0.0,
+            "bytes": int(length[near].sum()) / n_bytes if n_bytes else 0.0}
+    return {"matches": n_matches, "match_bytes": n_bytes, "within": shares}
+
+
 def decode_plain(comp: torch.Tensor, comp_lens: torch.Tensor,
                  out_cap: int = MAX_OUT, with_steps: bool = False):
     """Plain PyTorch decode with the kernel's results, for tests and checks.
@@ -81,6 +128,12 @@ def decode_plain(comp: torch.Tensor, comp_lens: torch.Tensor,
     chunk has stopped; a chunk's step count is the steps it was live in.
     """
     comp, comp_lens = check_decode_args(comp, comp_lens, out_cap)
+    return _plain(comp, comp_lens, out_cap, with_steps)
+
+
+def _plain(comp, comp_lens, out_cap, with_steps, on_match=None):
+    """``decode_plain``; ``on_match(match, dist, length)``, where given, sees
+    each step's (B,) mask of the chunks whose match moved, with its fields."""
     B, cap = comp.shape
     dev = comp.device
     i64 = torch.int64
@@ -189,6 +242,8 @@ def decode_plain(comp: torch.Tensor, comp_lens: torch.Tensor,
         err |= bad
         match &= ~bad
         copy(match, op, dist, length, ~no)
+        if on_match is not None:
+            on_match(match, dist, length)
         op += torch.where(match, length, 0)
         ip = torch.where(match, end, ip)
 

@@ -12,7 +12,14 @@ one launch of each kernel for the whole batch, with no fixed geometry:
   block order with the repeat offsets carried across them, and each
   section's final bit count and error flag;
 - ``execute`` (``csrc/zstd_execute.cu``): each frame's blocks and sequences
-  into its output row, with its length and ok flag.
+  into its output row, with its length and ok flag. It takes a block's
+  sequences in rounds of up to 32 and keeps each frame's recent output in a
+  shared-memory window (``EXECUTE_WINDOWS``, two instantiations of one
+  template): 32 KB up to ``EXECUTE_SMALL_BATCH`` frames, 4 KB above, so
+  that 4096 frames fit the card in one wave. ``offset_reach`` (the farthest
+  match offset it reads from its window) and ``offset_shares`` (the share
+  of matches, and of their bytes, within a reach) describe that choice on
+  real data.
 
 ``decode_plan`` runs the three and then validates as ``zstd_jax`` does: a
 Huffman or sequences stream that did not end exactly on its first bit, a
@@ -58,6 +65,9 @@ S_WORDS = 8  # a sequences section: byte_lo, rem, nseq, out_base, ll, of, ml sta
 S_TABLE = 1280  # its FSE entries: LL 512, OF 256, ML 512
 B_WORDS = 16  # a block: n_seq, seq_base, lit_total, 0, kind[4], src[4], end[4]
 SRC_PAD = 8  # zero bytes after the input: the kernels' 8-byte windows
+
+EXECUTE_WINDOWS = (4096, 32768)  # the execute kernel's output windows, in bytes
+EXECUTE_SMALL_BATCH = 792  # the most frames that take the 32 KB window (kSmallBatchFrames)
 
 # Kernel launches, and the frames the execute kernel ran, for runs that must
 # show the kernels were used. Only a launch of a CUDA kernel adds to them.
@@ -324,6 +334,41 @@ def execute(src: torch.Tensor, lit: torch.Tensor, seq3: torch.Tensor,
         execute_launches += 1
         execute_frames += F
     return out, out_len, ok
+
+
+def execute_round(window: int) -> int:
+    """The most output bytes one round of sequences adds with a window of
+    this size (kRound)."""
+    return min(window // 4, 4096)
+
+
+def offset_reach(window: int) -> int:
+    """The farthest match offset the execute kernel reads from a window of
+    this size; a farther match reads device memory."""
+    return window - execute_round(window)
+
+
+def offset_shares(seq3: torch.Tensor, frames: torch.Tensor, blocks: torch.Tensor,
+                  reaches=tuple(offset_reach(w) for w in EXECUTE_WINDOWS)) -> dict:
+    """For each reach, the share of the matches (ml > 0) of every frame's
+    blocks whose offset is at most that reach, and the share of their
+    bytes; with the counts behind them."""
+    s = seq3.cpu().numpy().astype(np.int64)
+    fr = frames.cpu().numpy().astype(np.int64)
+    bl = blocks.cpu().numpy().astype(np.int64)
+    rows = [b for first, n in fr for b in range(first, first + max(n, 0))]
+    parts = [s[max(bl[b, 1], 0):max(bl[b, 1], 0) + max(bl[b, 0], 0)] for b in rows]
+    t = np.concatenate(parts) if parts else np.zeros((0, 3), np.int64)
+    ml, of = t[:, 1], t[:, 2]
+    live = ml > 0
+    n_matches, n_bytes = int(live.sum()), int(ml[live].sum())
+    shares = {}
+    for reach in reaches:
+        near = live & (of <= reach)
+        shares[reach] = {
+            "matches": int(near.sum()) / n_matches if n_matches else 0.0,
+            "bytes": int(ml[near].sum()) / n_bytes if n_bytes else 0.0}
+    return {"matches": n_matches, "match_bytes": n_bytes, "within": shares}
 
 
 def _segment_start(values: torch.Tensor, seg: torch.Tensor, seg_first: torch.Tensor):

@@ -50,9 +50,18 @@ level 3, as the zstd path gives them; the Huffman kernel also on
 hand-made streams (codes of one length, tables of log 11 and 12, a short
 stream, bits left, a stream read past its start, a broken walk) and both
 batches at each launch setting it times and at sub-ranges of 32 and 96
-bits; the LZO and deflate kernels likewise,
-on synthetic, edge, malformed and 64 KB chunks, and the deflate kernel's
-two instantiations (257 and 661 rows) on its window and table-slot cases;
+bits, and the execute kernel's two windows (257 and 793 frames; out_cap
+4093 too at 257) on hand-built round cases (overlapping matches, offsets
+at each reach +- 1, blocks of 31 to 65 sequences, every piece kind, bad
+sequences in either round, lengths near 2^31, output at and past out_cap
+4093); the LZO and
+deflate kernels likewise, on synthetic, edge, malformed and 64 KB chunks,
+the LZO kernel's two windows (257 and 793 rows) on its hand-built window
+cases (matches at each reach +- 1, an M4 of dist 49,151, every command
+family with 0-3 trailing literals, a 64 KB literal, 300-byte zero runs) at
+out_cap 65536 (4096 and 4093 too at 257 rows), and the deflate kernel's two
+instantiations
+(257 and 661 rows) on its window and table-slot cases;
 the DFAST matcher kernel with its step counts on its edge cases, two
 hand-built round chunks (tiled to 3 and 397 rows) and six 64 KB chunks,
 and the emission kernel on their plans, a one-sequence plan, a row with
@@ -66,10 +75,11 @@ out_cap 65536 and 4093, 257 and 793 rows of an odd width and each row
 alone; the step counts of the Snappy and LZ4 decode, the LZO and deflate
 decode and the Snappy and LZ4 encode kernels, the encoders' also on their
 hand-built round chunks (tiled to 3 and 793 rows), on 64 KB rows and on
-the corpus. It prints the share of the corpus's Snappy and deflate copies
-within each window's reach, the DFAST, deflate and encode kernels' ns a
-step of the corpus's longest chain and the zstd Huffman and emission
-kernels' ns a symbol of the longest stream, the encode kernels' times at
+the corpus. It prints the share of the corpus's Snappy, deflate and LZO
+copies and zstd matches within each window's reach, the DFAST, deflate,
+LZO and encode kernels' ns a step of the corpus's longest chain, the zstd
+execute kernel's ns a sequence of the longest frame and the zstd Huffman
+and emission kernels' ns a symbol of the longest stream, the encode kernels' times at
 five shared-memory carveouts and the Huffman kernel's at its launch
 settings, and the Huffman and emission kernels alone (device time from a
 profiler trace) beside their wrappers' times. Every
@@ -662,6 +672,121 @@ def dfast_in_round_case() -> tuple[bytes, tuple[int, int]]:
     return bytes(buf), (100, 120)
 
 
+class ExecBatch:
+    """Hand-built inputs of the zstd execute kernel: frames of blocks whose
+    (ll, ml, offset) triples read a literal buffer, an input buffer or RLE
+    bytes through up to four pieces, as ``zstd_decode.execute`` takes them
+    (``arrays``)."""
+
+    HUFF, RAW, RLE = 0, 1, 2
+
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+        self.lit = self.rng.integers(0, 256, 1 << 17, dtype=np.uint8)
+        self.src = self.rng.integers(0, 256, 1 << 16, dtype=np.uint8)
+        self.seq: list[list[int]] = []
+        self.rows: list[list[int]] = []
+        self.frames: list[list[int]] = []
+        self.names: list[str] = []
+
+    def block(self, triples, lit_total: int, pieces) -> list[int]:
+        """One block row: its triples, lit_total and (kind, src, end) pieces."""
+        pad = [0] * (4 - len(pieces))
+        row = [len(triples), len(self.seq) if triples else -1, lit_total, 0,
+               *[p[0] for p in pieces], *pad, *[p[1] for p in pieces], *pad,
+               *[p[2] for p in pieces], *pad]
+        self.seq += [list(t) for t in triples]
+        return row
+
+    def frame(self, name: str, rows) -> None:
+        self.frames.append([len(self.rows), len(rows)])
+        self.rows += rows
+        self.names.append(name)
+
+    def valid(self, n: int, op: int, lmax: int = 5, mmax: int = 20) -> tuple[list, int]:
+        """n random sequences that are valid after op bytes of output: ll up to
+        lmax, ml 3 to mmax, offsets up to the output before each match (1 at
+        the start). Returns them and their literal count."""
+        out, lits = [], 0
+        for _ in range(n):
+            ll = int(self.rng.integers(0 if op else 1, lmax + 1))
+            ml = int(self.rng.integers(3, mmax + 1))
+            of = int(self.rng.integers(1, op + ll + 1))
+            out.append((ll, ml, of))
+            op, lits = op + ll + ml, lits + ll
+        return out, lits
+
+    def arrays(self) -> dict:
+        return dict(src=self.src, lit=self.lit,
+                    seq3=np.array(self.seq or [[0, 0, 0]], np.int32).reshape(-1, 3),
+                    frames=np.array(self.frames, np.int32).reshape(-1, 2),
+                    blocks=np.array(self.rows, np.int32).reshape(-1, 16))
+
+
+def execute_round_cases() -> tuple[list[str], dict]:
+    """Hand-built frames for the zstd execute kernel's rounds and windows:
+    overlapping matches (offsets 1, 3, 7, 31, 37, 63, 64; one longer than a
+    round); offsets at each window's reach - 1, reach and reach + 1 (64
+    bytes, a round and a little more, 5 bytes); blocks of 31, 32, 33, 64 and
+    65 sequences (two literal pieces crossed inside a round) and a frame of
+    blocks of 31 and 33; four Huffman pieces, a raw piece, an RLE piece, a
+    raw block and an RLE block; frames not ok from a bad sequence in lane 0,
+    in lane 31 and in the round after, ll = 2^31 - 1, ml = 2^31 - 1,
+    literals past lit_total, past the pieces' cover by a sequence and by the
+    trailing literals; and frames of exactly 4093 and 4094 bytes. Returns the
+    frame names and the kernel's arrays (numpy)."""
+    from aircompressor_tpu_torch.ops.zstd_decode import (
+        EXECUTE_WINDOWS, execute_round, offset_reach)
+
+    b = ExecBatch(21)
+    H, RAW, RLE = b.HUFF, b.RAW, b.RLE
+    seqs = [(40, 100, 1), (5, 300, 3), (0, 70, 31), (2, 200, 37), (10, 5000, 7), (3, 64, 64),
+            (1, 2000, 63)]
+    b.frame("overlap", [b.block(seqs, 81, [(H, 0, 81)])])
+    for window in EXECUTE_WINDOWS:
+        reach, rnd = offset_reach(window), execute_round(window)
+        seqs = [(reach + 200, 0, 0)]
+        for off in (reach - 1, reach, reach + 1):
+            seqs += [(3, 64, off), (0, rnd + 100, off), (1, 5, off)]
+        lits = sum(t[0] for t in seqs) + 10
+        b.frame(f"reach-{window}", [b.block(seqs, lits, [(H, 1024, lits)])])
+    for n in (31, 32, 33, 64, 65):
+        seqs, lits = b.valid(n, 0)
+        lits += 7
+        b.frame(f"rounds-{n}", [b.block(seqs, lits, [(H, 4096, lits // 2), (H, 8192, lits)])])
+    first, l1 = b.valid(31, 0)
+    second, l2 = b.valid(33, l1 + 3 + sum(t[1] for t in first))
+    b.frame("two-blocks", [b.block(first, l1 + 3, [(H, 12288, l1 + 3)]),
+                           b.block(second, l2, [(RAW, 777, l2)])])
+    seqs, lits = b.valid(40, 0, lmax=25)
+    huff4 = [(H, 16384, lits // 4), (H, 16896, lits // 2), (H, 17408, lits // 2 + 1),
+             (H, 17920, lits)]
+    rows = [b.block(seqs, lits, huff4)]
+    op = lits + sum(t[1] for t in seqs)
+    seqs, lits = b.valid(20, op)
+    rows.append(b.block(seqs, lits, [(RAW, 5000, lits)]))
+    op += lits + sum(t[1] for t in seqs)
+    seqs, lits = b.valid(20, op)
+    rows.append(b.block(seqs, lits, [(RLE, 0x5A, lits)]))
+    rows += [b.block([], 1000, [(RAW, 100, 1000)]), b.block([], 3000, [(RLE, 7, 3000)])]
+    b.frame("pieces", rows)
+    base, lits = b.valid(64, 0)
+    lits += 5
+    for name, i, field, value in (
+            ("bad-lane0-ml", 0, 1, -1), ("bad-lane31-offset", 31, 2, 0),
+            ("bad-next-round-offset", 32, 2, 1 << 20), ("ll-max", 3, 0, 2**31 - 1),
+            ("ml-max", 40, 1, 2**31 - 1), ("past-lit-total", 50, 0, lits)):
+        seqs = [list(t) for t in base]
+        seqs[i][field] = value
+        b.frame(name, [b.block(seqs, lits, [(H, 20480, lits)])])
+    b.frame("past-cover-sequence", [b.block(base, lits, [(H, 20480, 20)])])
+    b.frame("past-cover-trailing", [b.block(base, lits, [(H, 20480, lits - 3)])])
+    for total in (4093, 4094):
+        seqs = [(100, 3000, 90), (0, total - 3100 - 5, 2048)]
+        b.frame(f"out-{total}", [b.block(seqs, 105, [(RAW, 333, 105)])])
+    return b.names, b.arrays()
+
+
 def zstd_malformed_cases() -> list[tuple[str, bytes, str]]:
     """zstd frames that pass the planner and that the decode must reject,
     each with its name and the reason the decode gives: a Huffman stream
@@ -738,6 +863,118 @@ LZO_EDGE_BLOCKS = [
 def lzo_cases() -> list[bytes]:
     """The LZO comparison's originals: the synthetic cases cut to 64 KB."""
     return [c[:CHUNK] for _, c in synthetic_cases()]
+
+
+def _lzo_ext(n: int) -> bytes:
+    """A zero-extended length field of n >= 1: zeros worth 255 each, then the
+    last byte (1 to 255)."""
+    zeros, last = divmod(n - 1, 255)
+    return bytes(zeros) + bytes([last + 1])
+
+
+class LzoBlock:
+    """An LZO1X block built command by command, with the state each command
+    needs: a literal run after a match with no trailing literals (or at the
+    start), M1 after 1-3 trailing literals, M1' after a literal run."""
+
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+        self.parts: list[bytes] = []
+        self.op = 0
+        self.state = 0
+
+    def noise(self, n: int) -> bytes:
+        return self.rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+    def first(self, n: int) -> "LzoBlock":  # a first-byte literal run, 1 to 238
+        assert not self.parts and 1 <= n <= 238
+        self.parts.append(bytes([17 + n]) + self.noise(n))
+        self.op, self.state = n, min(n, 4)
+        return self
+
+    def literals(self, n: int) -> "LzoBlock":  # a literal-run command, n >= 4
+        assert self.state == 0 and n >= 4
+        head = bytes([n - 3]) if n <= 18 else b"\0" + _lzo_ext(n - 18)
+        self.parts.append(head + self.noise(n))
+        self.op, self.state = self.op + n, 4
+        return self
+
+    def match(self, family: str, length: int, dist: int, trailing: int = 0) -> "LzoBlock":
+        assert 1 <= dist <= self.op
+        if family == "M1":  # 2 bytes after 1-3 literals, 3 after a run
+            assert length == (2 if self.state < 4 else 3) and self.state > 0
+            d = dist - (1 if self.state < 4 else 2049)
+            assert 0 <= d < 1024
+            head = bytes([((d & 3) << 2) | trailing, d >> 2])
+        elif family == "M2":  # 3 to 8 bytes, dist up to 2048
+            d = dist - 1
+            assert 3 <= length <= 8 and d < 2048
+            head = bytes([((length - 1) << 5) | ((d & 7) << 2) | trailing, d >> 3])
+        elif family == "M3":  # dist up to 16384
+            d = dist - 1
+            assert length >= 3 and d < 16384
+            head = (bytes([32 | (length - 2)]) if length <= 33 else b"\x20" + _lzo_ext(length - 33)
+                    ) + ((d << 2) | trailing).to_bytes(2, "little")
+        else:  # M4: dist 16385 to 49151
+            d = dist - 16384
+            assert family == "M4" and length >= 3 and 0 < d < 32768
+            hi = (d >> 14) << 3
+            head = (bytes([16 | hi | (length - 2)]) if length <= 9 else bytes([16 | hi])
+                    + _lzo_ext(length - 9)) + (((d & 0x3FFF) << 2) | trailing).to_bytes(2, "little")
+        self.parts.append(head + self.noise(trailing))
+        self.op, self.state = self.op + length + trailing, trailing
+        return self
+
+    def stop(self, zero_run: int = 0) -> bytes:
+        """The block ended by the stop command (an M4 at dist 16384), its
+        length zero-extended over ``zero_run`` zeros where that is not 0."""
+        stop = b"\x11\0\0" if not zero_run else b"\x10" + bytes(zero_run) + b"\x01\0\0"
+        return b"".join(self.parts) + stop
+
+
+def lzo_window_cases() -> list[tuple[str, bytes]]:
+    """Hand-built LZO1X blocks for the decode kernel's window and input ring:
+    for each window, M3 or M4 matches (the families that reach that far) at
+    dist reach - 1, reach and reach + 1, of 9 or 33 bytes and zero-extended
+    lengths of several steps, with 0-3 trailing literals; an M4 of dist
+    49,151; every command family with 0-3 trailing literals, M2 at dist 1
+    and 2048 among them; overlapping zero-extended matches at dist 1, 31 and
+    37; a 64 KB literal run; and zero-extended lengths over a 300-byte zero
+    run, as the stop command (ok), a literal run and an M3 (both past 64 KB,
+    malformed)."""
+    from aircompressor_tpu_torch.ops.lzo_decode import WINDOWS, copy_reach, step_bytes
+
+    cases = []
+    for window in WINDOWS:
+        reach, step = copy_reach(window), step_bytes(window)
+        blk = LzoBlock(window).literals(window + 300)
+        for k, dist in enumerate((reach - 1, reach, reach + 1)):
+            family = "M3" if dist <= 16384 else "M4"
+            for j, length in enumerate((9, 2 * step + 17, step)):
+                blk.match(family, length, dist, (k + j) % 4)
+                if blk.state == 0:
+                    blk.literals(5 + k)
+        cases.append((f"reach-{window}", blk.stop()))
+    blk = LzoBlock(1).literals(49151 + 100)
+    blk.match("M4", 300, 49151, 2).match("M4", 9, 49151).literals(7).match("M4", 40, 49150, 3)
+    cases.append(("m4-49151", blk.stop()))
+    blk = LzoBlock(2).literals(20000)
+    blk.match("M1", 3, 2049, 1).match("M1", 2, 1, 2).match("M1", 2, 1024, 3).match("M1", 2, 5, 0)
+    for tr in range(4):
+        if blk.state:
+            blk.match("M1", 2, 7, 0)
+        blk.literals(4 + tr).match("M1", 3, 3072 - tr, tr)
+        blk.match("M2", 3 + tr, 1 + 600 * tr, tr).match("M2", 8, 2048, tr)
+        blk.match("M3", 5 + tr, 1000 + tr, tr).match("M4", 4 + tr, 16385 + 999 * tr, tr)
+    blk.match("M3", 3000, 1, 1).match("M3", 2000, 37, 2).match("M3", 50, 31, 3)
+    blk.match("M4", 700, 16385, 0)
+    cases.append(("families", blk.stop()))
+    cases.append(("literal-64k", LzoBlock(3).literals(65536).stop()))
+    cases.append(("stop-zero-run-300", LzoBlock(4).first(17).stop(300)))
+    cases.append(("literal-zero-run-300", b"\0" + bytes(300) + b"\x05" + bytes(50)))
+    cases.append(("m3-zero-run-300", LzoBlock(5).first(9).stop()[:-3] + b"\x20" + bytes(300)
+                  + b"\x05\x04\0\x11\0\0"))
+    return cases
 
 
 def corpus_full_cases() -> list[bytes]:
@@ -1289,6 +1526,7 @@ def zstd_kernels_against_plain(dev) -> dict:
 
     errs["zstd_huffman"] = max(errs["zstd_huffman"],
                                huffman_lanes_against_plain(dev, (pk, full_pk)))
+    errs["zstd_execute"] = max(errs["zstd_execute"], execute_rounds_against_plain(dev))
 
     res, full_res = zstd_decode.decode_plan(pk), zstd_decode.decode_plan(full_pk)
     ok, checksum_ok = res["ok"].tolist(), res["checksum_ok"].tolist()
@@ -1323,6 +1561,38 @@ def zstd_kernels_against_plain(dev) -> dict:
           f"plain versions {t_full_plain:.2f} s (host clock); max_abs_err over both "
           f"batches {errs}")
     return dict(n_frames=len(items), plan=plan, pk=pk, errs=errs)
+
+
+def execute_rounds_against_plain(dev) -> int:
+    """Hold both windows of the zstd execute kernel to its plain version on
+    the hand-built round cases (``execute_round_cases``), their frames tiled
+    to 257 rows (the 32 KB window; out_cap 64 KB and 4093) and
+    EXECUTE_SMALL_BATCH + 1 rows (the 4 KB window; out_cap 64 KB); return
+    the max_abs_err."""
+    from aircompressor_tpu_torch.ops import zstd_decode
+
+    names, arrays = execute_round_cases()
+    a = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+    err = 0
+    for rows in (257, zstd_decode.EXECUTE_SMALL_BATCH + 1):
+        frames = a["frames"].repeat(rows // len(names) + 1, 1)[:rows].contiguous()
+        args = (a["src"], a["lit"], a["seq3"], frames, a["blocks"])
+        for out_cap in (CHUNK, 4093) if rows == 257 else (CHUNK,):
+            p = zstd_decode.execute_plain(*args, out_cap=out_cap)
+            k = zstd_decode.execute(*args, out_cap=out_cap)
+            torch.cuda.synchronize()
+            for name, x, y in zip(("out", "out_len", "ok"), k, p):
+                require(torch.equal(x, y), f"zstd_execute {name} equal plain on the round "
+                                           f"cases at out_cap {out_cap}, {rows} rows")
+            err = max(err, int((k[0].int() - p[0].int()).abs().max()))
+            good = [n for n, ok in zip(names, k[2].tolist()) if ok]
+            require(out_cap < CHUNK or good == [n for n in names if not n.startswith(
+                ("bad", "ll-", "ml-", "past"))], f"the round cases ok as named: {good[:30]}")
+    print(f"zstd_execute windows {zstd_decode.EXECUTE_WINDOWS}: the {len(names)} round cases "
+          f"({', '.join(names)}) tiled to 257 and {zstd_decode.EXECUTE_SMALL_BATCH + 1} "
+          f"frames, out_cap {CHUNK} (and 4093 at 257), kernel == plain (out, out_len, ok), "
+          f"max_abs_err {err}")
+    return err
 
 
 def huffman_lanes_against_plain(dev, packed) -> int:
@@ -1472,6 +1742,18 @@ def zstd_kernel_times(zk: dict, zp: dict) -> list[dict]:
               f"{ms_mid:.4f} ms, bound {b_mid:.5f} ms; {n_big} frames: kernel "
               f"{ms_big:.4f} ms, bound {b_big:.5f} ms")
         extra = {}
+        if name == "zstd_execute":
+            shares = zstd_decode.offset_shares(*mid[2:])
+            longest = max(sum(bp.n_seq for bp in fp.blocks) for fp in zp["plan"].frames)
+            total = sum(bp.n_seq for fp in zp["big_plan"].frames for bp in fp.blocks)
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            extra = {"redesigned": "PR 12", "longest_chain_steps": longest}
+            print("zstd match offsets of the corpus (share of matches and of their bytes "
+                  "within each window's reach): " + json.dumps(shares))
+            print(f"zstd_execute: {ms_mid * 1e6 / longest:.1f} ns a sequence of the longest "
+                  f"frame ({longest} sequences) at {n_mid} frames; "
+                  f"{ms_big * 1e6 * sms / total:.2f} ns a sequence of an SM (all {total} "
+                  f"sequences over {sms} SMs) at {n_big}")
         if name == "zstd_huffman":
             extra = {"redesigned": "PR 11", **alone_ms(fn, "huffman_kernel", (small, mid, big))}
             longest = max(h.nsym for h in zp["plan"].huff_streams)
@@ -1917,12 +2199,59 @@ def lzo_kernel_against_plain(dev) -> dict:
     full = blobs[len(raws) - n_full:len(raws)]
     top = steps_against_plain("lzo decode", lzo_decode.decode, lzo_decode.decode_plain,
                               comp, lens, out_cap=LZO_EDGE_CAP)
+    err = max(err, lzo_windows_against_plain(dev, full))
     print(f"lzo decode: {len(blobs)} chunks ({want.count(None)} malformed; "
           f"{n_full} of 64 KB corpus chunks) at out_cap {CHUNK} and {LZO_EDGE_CAP}, "
           f"kernel == plain, max_abs_err {err}; edge blocks as the Pallas kernel; "
           f"plain {t_plain:.2f} s (host clock, both caps); with_steps == plain "
           f"(largest {top} commands)")
     return dict(err=err, full=full)
+
+
+def lzo_windows_against_plain(dev, blobs: list[bytes]) -> int:
+    """Hold both windows of the LZO decode kernel to the plain version with
+    steps: the given blobs and the hand-built window cases tiled to 257 rows
+    (the 32 KB window; out_cap 64 KB, 4096 and 4093) and to SMALL_BATCH + 1
+    rows (the 4 KB window; out_cap 64 KB) of an odd width; the cases against
+    the host decoder. Return the max_abs_err."""
+    from aircompressor_tpu_torch.errors import MalformedInputException
+    from aircompressor_tpu_torch.host import lzo as host_lzo
+    from aircompressor_tpu_torch.ops import lzo_decode
+    from aircompressor_tpu_torch.ops.batch import _pack, to_device_batch
+
+    cases = lzo_window_cases()
+    blobs = blobs + [b for _, b in cases]
+    want = []
+    for b in blobs:
+        try:
+            want.append(host_lzo.decompress(b, CHUNK))
+        except MalformedInputException:
+            want.append(None)
+    err = 0
+    for rows in (257, lzo_decode.SMALL_BATCH + 1):
+        batch = (blobs * (rows // len(blobs) + 1))[:rows]
+        comp, lens = to_device_batch(*_pack(batch, max(map(len, batch)) | 1), dev)
+        for out_cap in (CHUNK, 4096, 4093) if rows == 257 else (CHUNK,):
+            p = lzo_decode.decode_plain(comp, lens, out_cap=out_cap, with_steps=True)
+            k = lzo_decode.decode(comp, lens, out_cap=out_cap, with_steps=True)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("out", "out_lens", "ok", "steps"), k, p):
+                require(torch.equal(a, b), f"lzo decode {name} equal plain at out_cap "
+                                           f"{out_cap}, {rows} rows")
+            err = max(err, int((k[0].int() - p[0].int()).abs().max()))
+            if out_cap == CHUNK:
+                got = k[2].tolist()
+                for i, w in enumerate(want):
+                    require(got[i] == (w is not None), f"lzo window case {i} ok as the host")
+                    if w is not None:
+                        require(k[0][i, :len(w)].cpu().numpy().tobytes() == w,
+                                f"lzo window case {i} equals the host decoder's bytes")
+    print(f"lzo decode windows {lzo_decode.WINDOWS}: 257 and {lzo_decode.SMALL_BATCH + 1} "
+          f"rows of an odd width (six 64 KB corpus chunks and {len(cases)} window cases: "
+          f"{', '.join(n for n, _ in cases)}), out_cap {CHUNK} (and 4096 and 4093 at 257 "
+          f"rows), kernel == "
+          f"plain (out, out_lens, ok, steps), cases == host decoder, max_abs_err {err}")
+    return err
 
 
 def deflate_kernel_against_plain(dev) -> dict:
@@ -2106,6 +2435,14 @@ def lzo_path(dev, corpus: list[bytes], sustain: int = SUSTAIN) -> dict:
     require([v & (2**64 - 1) for v in digest.tolist()] == want_hash,
             "every xxh64 of a decoded LZO chunk equals the host's of its original")
     comp_bytes = sum(map(len, blobs))
+    steps = lzo_decode.decode(comp, comp_lens, with_steps=True)[3]
+    top = int(steps.argmax())
+    chain = dict(steps=int(steps[top]), chunk=top, total=int(steps.sum()))
+    shares = lzo_decode.distance_shares(comp, comp_lens)
+    print(f"lzo steps on the corpus: longest chain chunk {top}, {chain['steps']} commands; "
+          f"{chain['total']} in all")
+    print("lzo match distances of the corpus (share of matches and of their bytes within "
+          "each window's reach): " + json.dumps(shares))
     print(f"LzoBatchCodec.compress_chunks (host encoder): {n} chunks, "
           f"{sum(map(len, corpus))} B -> {comp_bytes} B in {t_compress:.2f} s (host clock)")
     print(f"LzoBatchCodec.decompress_chunks: {n} chunks in {t_codec:.4f} s (host clock, "
@@ -2115,7 +2452,7 @@ def lzo_path(dev, corpus: list[bytes], sustain: int = SUSTAIN) -> dict:
           f"chunks through the LZO kernel")
     return dict(comp=comp, comp_lens=comp_lens, big=big, big_lens=big_lens,
                 counts=counts, comp_bytes=comp_bytes, decoded_bytes=int(out_lens.sum()),
-                t_codec=t_codec)
+                t_codec=t_codec, chain=chain)
 
 
 def deflate_path(dev, corpus: list[bytes], sustain: int = SUSTAIN) -> dict:
@@ -2249,6 +2586,14 @@ def lzo_deflate_times(dev, lk: dict, lp: dict, dk: dict, dp: dict) -> list[dict]
             "library_ms": None, "batch": "6 corpus chunks of 64 KB",
             "chunks": N_CHUNKS, "chunks_ms": ms_mid, "chunks_bound_ms": b_mid,
             "tiled_chunks": N_CHUNKS * SUSTAIN, "tiled_ms": ms_big, "tiled_bound_ms": b_big})
+        if name == "lzo_decode":
+            chain, sms = path["chain"], torch.cuda.get_device_properties(0).multi_processor_count
+            entries[-1].update(redesigned="PR 12", longest_chain_steps=chain["steps"])
+            print(f"lzo_decode: {ms_mid * 1e6 / chain['steps']:.1f} ns a command of the "
+                  f"longest chain ({chain['steps']} commands) at {N_CHUNKS} chunks; "
+                  f"{ms_big * 1e6 * sms / (chain['total'] * SUSTAIN):.2f} ns a command of an "
+                  f"SM (all {chain['total'] * SUSTAIN} commands over {sms} SMs) at "
+                  f"{N_CHUNKS * SUSTAIN}")
         if name == "deflate_decode":
             chain, sms = path["chain"], torch.cuda.get_device_properties(0).multi_processor_count
             entries[-1].update(redesigned="table slot, input ring and output window in "
