@@ -1,8 +1,9 @@
 // Shared-memory staging for the decode kernels that keep a chunk's input and
 // its recent output in shared memory: cp.async wrappers, an input ring, an
 // output window that drains to device memory in 16-byte stores, and a
-// reciprocal table for k mod d. Used by csrc/lzo_decode.cu and
-// csrc/zstd_execute.cu; one warp runs each ring and window.
+// reciprocal table for k mod d. Used by csrc/lzo_decode.cu,
+// csrc/lz4_decode.cu and csrc/zstd_execute.cu; one warp runs each ring and
+// window.
 //
 // Input ring (kRingBytes, slices of 512 B: 2 KB beside a small window, 4 KB
 // beside a 32 KB one). A byte stream of a device buffer is addressed by ring
@@ -175,6 +176,13 @@ struct InputRing {
   // once the last slice with bytes has arrived).
   __device__ __forceinline__ int ready_end() const {
     return ready >= n_slices ? INT_MAX : ready * kSlice;
+  }
+
+  // The lowest coordinate still readable after need(end): need() may issue
+  // slices into the places of older ones.
+  __device__ __forceinline__ int kept_from(int end) const {
+    const int r = max(ready, min(n_slices, (end + kSlice - 1) / kSlice));
+    return (r - 2) * kSlice;
   }
 
   __device__ __forceinline__ uint32_t at(int p) const {

@@ -25,7 +25,14 @@ steps of many chunks; that is TPU machinery, so the port counts its own
 loop instead.
 
 ``decode`` launches ``csrc/lz4_decode.cu`` for a CUDA tensor and uses
-``decode_plain`` only for a tensor on the CPU.
+``decode_plain`` only for a tensor on the CPU. The kernel keeps each
+chunk's recent output in a shared-memory window (``WINDOWS``; two
+instantiations of one template): 32 KB up to ``SMALL_BATCH`` chunks, 4 KB
+above, so that 4096 chunks fit the card in one wave. ``step_bytes`` (the
+most output bytes a step moves), ``copy_reach`` (the farthest match
+distance the kernel reads from its window) and ``distance_shares`` (the
+share of matches, and of their bytes, within a reach) describe that choice
+on real data.
 """
 
 from __future__ import annotations
@@ -39,6 +46,21 @@ from ._rows import MAX_CHUNK as MAX_OUT, check_decode_args
 # kernel was used. Only a launch of the CUDA kernel adds to them.
 launches = 0
 rows = 0
+
+WINDOWS = (4096, 32768)  # the kernel's output windows, in bytes
+SMALL_BATCH = 792  # the most chunks that take the 32 KB window (kSmallBatchChunks)
+
+
+def step_bytes(window: int) -> int:
+    """The most output bytes one step of the kernel moves with a window of
+    this size (kStep)."""
+    return window // 16
+
+
+def copy_reach(window: int) -> int:
+    """The farthest match distance the kernel reads from a window of this
+    size; a farther match reads device memory."""
+    return window - step_bytes(window)
 
 
 def decode(comp: torch.Tensor, comp_lens: torch.Tensor,
@@ -71,6 +93,26 @@ def decode(comp: torch.Tensor, comp_lens: torch.Tensor,
     return result + (steps,) if with_steps else result
 
 
+def distance_shares(comp: torch.Tensor, comp_lens: torch.Tensor,
+                    reaches=tuple(copy_reach(w) for w in WINDOWS)) -> dict:
+    """For each reach, the share of the matches of every chunk's sequence
+    chain (those moved before its failing sequence, if any) whose dist is at
+    most that reach, and the share of their output bytes; with the counts
+    behind them."""
+    comp, comp_lens = check_decode_args(comp, comp_lens, MAX_OUT)
+    c = _chain(comp, comp_lens)
+    moved = c["is_seq"] & ~c["is_last"] & (~c["any_bad"][:, None] | (c["pos"] < c["first"]))
+    dist, length = c["dist"][moved], c["ml"][moved]
+    n_matches, n_bytes = int(dist.numel()), int(length.sum())
+    shares = {}
+    for reach in reaches:
+        near = dist <= reach
+        shares[reach] = {
+            "matches": int(near.sum()) / n_matches if n_matches else 0.0,
+            "bytes": int(length[near].sum()) / n_bytes if n_bytes else 0.0}
+    return {"matches": n_matches, "match_bytes": n_bytes, "within": shares}
+
+
 def decode_plain(comp: torch.Tensor, comp_lens: torch.Tensor,
                  out_cap: int = MAX_OUT, with_steps: bool = False):
     """Plain PyTorch decode with the kernel's results, for tests and checks.
@@ -84,6 +126,43 @@ def decode_plain(comp: torch.Tensor, comp_lens: torch.Tensor,
     one, included.
     """
     comp, comp_lens = check_decode_args(comp, comp_lens, out_cap)
+    B, cap = comp.shape
+    dev = comp.device
+    c = _chain(comp, comp_lens)
+    raw, lit, lit_start, dist = c["raw"], c["lit"], c["lit_start"], c["dist"]
+    op_at, incl, op = c["op_at"], c["incl"], c["op"]
+    any_bad, first = c["any_bad"], c["first"]
+    width = cap + 3
+
+    def at(table, idx):
+        return table.gather(1, idx.clamp(0, width - 1))
+
+    ok = ~c["err0"] & ~any_bad & c["ended"] & (op <= out_cap)
+
+    # Output bytes: covering sequence by searchsorted, copies by pointer
+    # doubling.
+    j = torch.arange(out_cap, device=dev).expand(B, out_cap).contiguous()
+    p = torch.searchsorted(incl, j, right=True).clamp_(max=cap)
+    produced = j < op.clamp(max=out_cap)[:, None]
+    jr = j - op_at.gather(1, p)
+    in_lit = jr < lit.gather(1, p)
+    lit_src = lit_start.gather(1, p) + jr
+    resolved = in_lit | ~produced
+    ptr = torch.where(resolved, j, j - dist.gather(1, p))
+    for _ in range(out_cap.bit_length()):
+        ptr = ptr.gather(1, ptr)
+    out = torch.where(produced, at(raw, lit_src.gather(1, ptr)), 0).to(torch.uint8)
+    if not with_steps:
+        return out, op.to(torch.int32), ok
+    last = torch.where(any_bad, first[:, 0], cap)
+    steps = (c["is_seq"] & (c["pos"] <= last[:, None])).sum(1)
+    return out, op.to(torch.int32), ok, steps.to(torch.int32)
+
+
+def _chain(comp: torch.Tensor, comp_lens: torch.Tensor) -> dict:
+    """The sequence chain of every chunk (``decode_plain``'s parse): for each
+    position, the fields of a sequence starting there, whether the chain
+    reaches it, and the output offsets; the first malformed sequence."""
     B, cap = comp.shape
     dev = comp.device
     i64 = torch.int64
@@ -148,23 +227,6 @@ def decode_plain(comp: torch.Tensor, comp_lens: torch.Tensor,
                   + torch.where(bad_lit.gather(1, first), 0, lit.gather(1, first)))[:, 0]
     op = torch.where(any_bad, stopped_at, incl[:, -1])
     ended = (is_seq & is_last).any(1)
-    ok = ~err0 & ~any_bad & ended & (op <= out_cap)
-
-    # Output bytes: covering sequence by searchsorted, copies by pointer
-    # doubling.
-    j = torch.arange(out_cap, device=dev).expand(B, out_cap).contiguous()
-    p = torch.searchsorted(incl, j, right=True).clamp_(max=cap)
-    produced = j < op.clamp(max=out_cap)[:, None]
-    jr = j - op_at.gather(1, p)
-    in_lit = jr < lit.gather(1, p)
-    lit_src = lit_start.gather(1, p) + jr
-    resolved = in_lit | ~produced
-    ptr = torch.where(resolved, j, j - dist.gather(1, p))
-    for _ in range(out_cap.bit_length()):
-        ptr = ptr.gather(1, ptr)
-    out = torch.where(produced, at(raw, lit_src.gather(1, ptr)), 0).to(torch.uint8)
-    if not with_steps:
-        return out, op.to(torch.int32), ok
-    last = torch.where(any_bad, first[:, 0], cap)
-    steps = (is_seq & (pos <= last[:, None])).sum(1)
-    return out, op.to(torch.int32), ok, steps.to(torch.int32)
+    return dict(raw=raw, pos=pos, is_seq=is_seq, is_last=is_last, lit=lit,
+                lit_start=lit_start, dist=dist, ml=ml, op_at=op_at, incl=incl, op=op,
+                err0=err0, any_bad=any_bad, first=first, ended=ended)

@@ -54,8 +54,14 @@ bits, and the execute kernel's two windows (257 and 793 frames; out_cap
 4093 too at 257) on hand-built round cases (overlapping matches, offsets
 at each reach +- 1, blocks of 31 to 65 sequences, every piece kind, bad
 sequences in either round, lengths near 2^31, output at and past out_cap
-4093); the LZO and
-deflate kernels likewise, on synthetic, edge, malformed and 64 KB chunks,
+4093); both windows of the LZ4 decode kernel (257 and 793 rows of an odd
+width) on its cases, 64 KB blocks and hand-built window cases (matches at
+each reach +- 1, offsets 65,520 and 65,535, a 64 KB literal, extensions
+over ring slices, overlapping matches at dist 1-63, matches that read
+their own literals, a match extended to the 64 KB limit and past it) at
+out_cap 65536, 4096 and 4093, steps included; the xxh32 kernel at 1, 7,
+257, 529, 1,057 and 2,113 rows of 64 KB and 65,533 B at every seed; the
+LZO and deflate kernels likewise, on synthetic, edge, malformed and 64 KB chunks,
 the LZO kernel's two windows (257 and 793 rows) on its hand-built window
 cases (matches at each reach +- 1, an M4 of dist 49,151, every command
 family with 0-3 trailing literals, a 64 KB literal, 300-byte zero runs) at
@@ -75,9 +81,10 @@ out_cap 65536 and 4093, 257 and 793 rows of an odd width and each row
 alone; the step counts of the Snappy and LZ4 decode, the LZO and deflate
 decode and the Snappy and LZ4 encode kernels, the encoders' also on their
 hand-built round chunks (tiled to 3 and 793 rows), on 64 KB rows and on
-the corpus. It prints the share of the corpus's Snappy, deflate and LZO
-copies and zstd matches within each window's reach, the DFAST, deflate,
-LZO and encode kernels' ns a step of the corpus's longest chain, the zstd
+the corpus. It prints the share of the corpus's Snappy, deflate, LZO and
+LZ4 copies and zstd matches within each window's reach, the DFAST, deflate,
+LZO, LZ4 decode and encode kernels' ns a step of the corpus's longest
+chain, the xxh32 kernel's time on one 64 KB stream alone, the zstd
 execute kernel's ns a sequence of the longest frame and the zstd Huffman
 and emission kernels' ns a symbol of the longest stream, the encode kernels' times at
 five shared-memory carveouts and the Huffman kernel's at its launch
@@ -292,6 +299,80 @@ def lz4_length_edges_case() -> bytes:
         pos += lit
         out += out[max(0, len(out) - match - lit):][:match]
     return out + noise[pos:pos + 525]
+
+
+def _lz4_ext(n: int) -> bytes:
+    """The 255-extension of a length whose nibble is 15: n - 15 as 0xFF bytes
+    worth 255 each, then the last byte (0 to 254)."""
+    full, last = divmod(n - 15, 255)
+    return b"\xff" * full + bytes([last])
+
+
+class Lz4Block:
+    """An LZ4 block built sequence by sequence, with random literals."""
+
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+        self.parts: list[bytes] = []
+        self.op = 0
+
+    def seq(self, lit: int, dist: int, length: int) -> "Lz4Block":
+        """lit literals, then a match of length >= 4 at dist (dist <= op
+        after the literals, unless a malformed block is wanted)."""
+        ml = length - 4
+        token = bytes([(min(lit, 15) << 4) | min(ml, 15)])
+        self.parts.append(token + (_lz4_ext(lit) if lit >= 15 else b"")
+                          + self.rng.integers(0, 256, lit, dtype=np.uint8).tobytes()
+                          + dist.to_bytes(2, "little") + (_lz4_ext(ml) if ml >= 15 else b""))
+        self.op += lit + length
+        return self
+
+    def end(self, lit: int = 5) -> bytes:
+        """The block, ended by a sequence of lit literals only."""
+        last = (bytes([min(lit, 15) << 4]) + (_lz4_ext(lit) if lit >= 15 else b"")
+                + self.rng.integers(0, 256, lit, dtype=np.uint8).tobytes())
+        return b"".join(self.parts) + last
+
+
+def lz4_window_cases() -> list[tuple[str, bytes]]:
+    """Hand-built LZ4 blocks for the decode kernel's window and input ring:
+    for each window, matches at dist reach - 1, reach and reach + 1 of 9,
+    2 * step + 17 and step bytes after 0-3 literals; a match at dist 65,520
+    that ends the output at 64 KB, and one at 65,535 past 64 KB (malformed:
+    the literals before it count); a 64 KB literal-only block; literal and
+    match 255-extensions that cross a 512-byte ring slice; overlapping
+    matches at dist 1-63; matches that read their own sequence's literals,
+    with the literals moved in the match's step and alone before it; a
+    dist-1 match extended to end the output at 64 KB, and one a byte past
+    (malformed)."""
+    from aircompressor_tpu_torch.ops.lz4_decode import WINDOWS, copy_reach, step_bytes
+
+    cases = []
+    for window in WINDOWS:
+        reach, step = copy_reach(window), step_bytes(window)
+        blk = Lz4Block(window).seq(window + 300, 1, 4)
+        for k, dist in enumerate((reach - 1, reach, reach + 1)):
+            for j, length in enumerate((9, 2 * step + 17, step)):
+                blk.seq((k + j) % 4, dist, length)
+        cases.append((f"reach-{window}", blk.end()))
+    cases.append(("far-65520", Lz4Block(1).seq(65520, 65520, 11).end(5)))
+    cases.append(("offset-65535", Lz4Block(2).seq(65535, 65535, 4).end(5)))
+    cases.append(("literal-64k", Lz4Block(3).end(65536)))
+    # token 0, literal extension 1-2, literals 3-482, offset 483-484, match
+    # extension 485-525 (over 512); then 470 literals to 998, offset to
+    # 1000, and a literal extension at 1002-1032 (over 1024)
+    blk = Lz4Block(4).seq(480, 1, 15 + 255 * 40 + 7 + 4).seq(470, 3000, 7)
+    cases.append(("ext-slices", blk.seq(15 + 255 * 30 + 3, 18000, 300).end()))
+    blk = Lz4Block(5).seq(64, 1, 4)
+    for d in range(1, 64):
+        blk.seq(d % 3 * 2, d, 4 + (37 * d) % 300)
+    cases.append(("overlap-1-63", blk.end()))
+    blk = Lz4Block(6).seq(40, 10, 100).seq(40, 40, 40).seq(40, 41, 90).seq(100, 60, 150)
+    blk.seq(200, 150, 300).seq(600, 300, 1500).seq(1100, 1000, 3000).seq(5, 5, 64)
+    cases.append(("own-literals", blk.end()))
+    cases.append(("match-to-64k", Lz4Block(7).seq(1, 1, 65530).end(5)))
+    cases.append(("match-past-64k", Lz4Block(8).seq(1, 1, 65536).end(5)))
+    return cases
 
 
 def encode_cases() -> list[bytes]:
@@ -1437,6 +1518,87 @@ def xxh64_batches_against_plain(dev) -> int:
     print(f"xxh64: 1, 7 and 257 rows of {CHUNK} and {CHUNK - 5} B, lengths -1, 0, 31, 32, "
           f"past the row and random, seeds {[hex(x) for x in XXH_SEEDS]} and 2^64-1: "
           f"kernel == plain (== host on the first 7 rows), max_abs_err {err}")
+    return err
+
+
+def xxh32_batches_against_plain(dev) -> int:
+    """Hold the xxh32 kernel to its plain version and the host at 1, 7, 257,
+    529, 1,057 and 2,113 rows (1, 1, 1, 2, 4 and 8 streams a warp) of 64 KB
+    (the staged variant) and 65,533 B (the plain variant), lengths -1, 0, 15, 16,
+    past the row and random, at every seed of the seed check; the first 7
+    rows and the last to the host too. Return the max_abs_err."""
+    from aircompressor_tpu_torch.host.xxhash import xxh32 as host_xxh32
+    from aircompressor_tpu_torch.ops import xxhash
+
+    rng = np.random.default_rng(45)
+    err = 0
+    for width in (CHUNK, CHUNK - 3):
+        for b in (1, 7, 257, 529, 1057, 2113):
+            host = rng.integers(0, 256, (b, width), dtype=np.uint8)
+            lens_list = ([-1, 0, 15, 16, width + 9, width, 65]
+                         + rng.integers(0, width, b, dtype=np.int64).tolist())[:b]
+            data = torch.from_numpy(host).to(dev)
+            lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+            for seed in (*XXH_SEEDS, (1 << 32) - 1):
+                k = xxhash.xxh32(data, lens, seed).tolist()
+                p = xxhash.xxh32_plain(data, lens, seed).tolist()
+                some = sorted({*range(min(b, 7)), b - 1})
+                s = [host_xxh32(host[i, :min(max(lens_list[i], 0), width)], seed)
+                     for i in some]
+                require(k == p and [k[i] for i in some] == s,
+                        f"xxh32 kernel == plain == host at {b} rows of {width} B, seed "
+                        f"{seed:#x}")
+                err = max([err] + [abs(x - y) for x, y in zip(k, p)])
+    print(f"xxh32: 1, 7, 257, 529, 1057 and 2113 rows of {CHUNK} and {CHUNK - 3} B, lengths -1, "
+          f"0, 15, 16, past the row and random, seeds {[hex(x) for x in XXH_SEEDS]} and "
+          f"2^32-1: kernel == plain (== host on the first 7 rows and the last), "
+          f"max_abs_err {err}")
+    return err
+
+
+def lz4_windows_against_plain(dev, blobs: list[bytes]) -> int:
+    """Hold both windows of the LZ4 decode kernel to the plain version with
+    steps: the given blobs and the hand-built window cases tiled to 257 rows
+    (the 32 KB window) and to SMALL_BATCH + 1 rows (the 4 KB window) of an
+    odd width, at out_cap 64 KB, 4096 and 4093; the flags and bytes against
+    the host decoder. Return the max_abs_err."""
+    from aircompressor_tpu_torch.errors import MalformedInputException
+    from aircompressor_tpu_torch.host import lz4 as host_lz4
+    from aircompressor_tpu_torch.ops import lz4_decode
+    from aircompressor_tpu_torch.ops.batch import _pack, to_device_batch
+
+    cases = lz4_window_cases()
+    blobs = blobs + [b for _, b in cases]
+    want = []
+    for b in blobs:
+        try:
+            want.append(host_lz4.decompress(b, CHUNK))
+        except MalformedInputException:
+            want.append(None)
+    err = 0
+    for rows in (257, lz4_decode.SMALL_BATCH + 1):
+        batch = (blobs * (rows // len(blobs) + 1))[:rows]
+        comp, lens = to_device_batch(*_pack(batch, max(map(len, batch)) | 1), dev)
+        for out_cap in (CHUNK, 4096, 4093):
+            p = lz4_decode.decode_plain(comp, lens, out_cap=out_cap, with_steps=True)
+            k = lz4_decode.decode(comp, lens, out_cap=out_cap, with_steps=True)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("out", "out_lens", "ok", "steps"), k, p):
+                require(torch.equal(a, b), f"lz4 decode {name} equal plain at out_cap "
+                                           f"{out_cap}, {rows} rows")
+            err = max(err, int((k[0].int() - p[0].int()).abs().max()))
+            got = k[2].tolist()
+            for i, w in enumerate(want):
+                require(got[i] == (w is not None and len(w) <= out_cap),
+                        f"lz4 window case {i} ok as the host at out_cap {out_cap}")
+                if w is not None:
+                    require(k[0][i, :min(len(w), out_cap)].cpu().numpy().tobytes()
+                            == w[:out_cap], f"lz4 window case {i} equals the host's bytes")
+    print(f"lz4 decode windows {lz4_decode.WINDOWS}: 257 and {lz4_decode.SMALL_BATCH + 1} "
+          f"rows of an odd width ({len(blobs) - len(cases)} blobs and {len(cases)} window "
+          f"cases: {', '.join(n for n, _ in cases)}), out_cap {CHUNK}, 4096 and 4093, "
+          f"kernel == plain (out, out_lens, ok, steps), cases == host decoder, max_abs_err "
+          f"{err}")
     return err
 
 
@@ -2875,6 +3037,7 @@ def main() -> None:
           f"malformed) at out_cap {CHUNK} and 4096, kernel == plain, "
           f"max_abs_err {lz4_decode_err}; F6 blocks as the Pallas kernel; with_steps "
           f"== plain (largest {int(k_st[3].max())} sequences)")
+    lz4_decode_err = max(lz4_decode_err, lz4_windows_against_plain(dev, lz4_blobs_in))
 
     xxh32_err = 0
     grid32 = list(range(101)) + [CHUNK - 1, CHUNK]
@@ -2890,6 +3053,7 @@ def main() -> None:
         require(k_h == p_h == s_h, f"xxh32 kernel == plain == scalar at L={width}")
     print(f"xxh32: {2 * len(grid32)} streams, kernel == plain == scalar, "
           f"max_abs_err {xxh32_err}")
+    xxh32_err = max(xxh32_err, xxh32_batches_against_plain(dev))
 
     zk = zstd_kernels_against_plain(dev)
     lk = lzo_kernel_against_plain(dev)
@@ -3136,6 +3300,16 @@ def main() -> None:
     require(lz4_ratio <= LZ4_RATIO_LIMIT, f"LZ4 encode size / host LZ4 size "
             f"{lz4_ratio} <= {LZ4_RATIO_LIMIT}")
     lz4_comp_bytes = sum(map(len, lz4_blobs))
+    lz_comp256, lz_comp_lens256 = to_device_batch(
+        *_pack(lz4_blobs, _round_up(max(map(len, lz4_blobs)), 16)), dev)
+    lz4_steps = lz4_decode.decode(lz_comp256, lz_comp_lens256, with_steps=True)[3]
+    lz4_top = int(lz4_steps.argmax())
+    lz4_chain = dict(steps=int(lz4_steps[lz4_top]), chunk=lz4_top, total=int(lz4_steps.sum()))
+    lz4_shares = lz4_decode.distance_shares(lz_comp256, lz_comp_lens256)
+    print(f"lz4 steps on the corpus: longest chain chunk {lz4_top}, {lz4_chain['steps']} "
+          f"sequences; {lz4_chain['total']} in all")
+    print("lz4 match distances of the corpus (share of matches and of their bytes within "
+          "each window's reach): " + json.dumps(lz4_shares))
     print(f"Lz4BatchCodec: compress_chunks {len(corpus)} chunks, "
           f"{sum(map(len, corpus))} B -> "
           f"{lz4_comp_bytes} B in {t_lz4_compress:.3f} s, decompress_chunks "
@@ -3180,8 +3354,6 @@ def main() -> None:
     enc256_ms = time_ms(lambda: snappy_encode.encode(raw, raw_lens), 5)
     enc_big_ms = time_ms(lambda: snappy_encode.encode(big_raw, big_raw_lens), 3)
     crc_ms = time_ms(lambda: checksum.crc32c(out256, lens256), 5)
-    lz_comp256, lz_comp_lens256 = to_device_batch(
-        *_pack(lz4_blobs, _round_up(max(map(len, lz4_blobs)), 16)), dev)
     lz_out256, lz_lens256 = lzb_out[:N_CHUNKS].contiguous(), lzb_out_lens[:N_CHUNKS]
     lzd_ms, lzd_plain_ms = paired_ms(
         lambda: lz4_decode.decode(lz_comp256, lz_comp_lens256),
@@ -3284,6 +3456,11 @@ def main() -> None:
     print(f"xxh32, {big_raw.shape[0]} chunks: kernel {x32_big_ms:.4f} ms "
           f"({gbps(raw_big, x32_big_ms):.3f} GB/s hashed), bound "
           f"{xxh_bound(raw_big, big_raw.shape[0]):.5f} ms")
+    print(f"lz4 decode: {lzd_ms * 1e6 / lz4_chain['steps']:.1f} ns a sequence of the longest "
+          f"chain ({lz4_chain['steps']} sequences) at {N_CHUNKS} chunks; "
+          f"{lzd_big_ms * 1e6 * sms / (lz4_chain['total'] * SUSTAIN):.2f} ns a sequence of an "
+          f"SM (all {lz4_chain['total'] * SUSTAIN} sequences over {sms} SMs) at "
+          f"{big_raw.shape[0]}")
     print(f"lz4 encode + decode + xxh32, {big_raw.shape[0]} chunks: "
           f"{gbps(raw_big, lze_big_ms + lzd_big_ms + x32_big_ms):.3f} GB/s")
 
@@ -3304,6 +3481,19 @@ def main() -> None:
     print(f"trace {trace_path}: {len(trace_text)} B, names snappy_decode_r2_kernel "
           f"and snappy_decode_kernel")
 
+    # xxh32 alone (profiler device time): one 64 KB stream, the accumulator
+    # chain with the card otherwise idle, then the two batches (a call of
+    # one stream takes the wrapper about as long on the host); after the
+    # trace above, which three profiler runs before it left without the
+    # r2 kernel
+    x32_alone = [profiling.kernel_ms(lambda: xxhash.xxh32(*args), "xxh32_kernel", 5,
+                                     str(_build.BUILD_DIR.parent / "profile" / "xxh32"))
+                 for args in ((lzb_out[:1], lzb_out_lens[:1]), (lz_out256, lz_lens256),
+                              (lzb_out, lzb_out_lens))]
+    print(f"xxh32 alone (profiler device time): one stream of {int(lzb_out_lens[0])} B (the "
+          f"accumulator chain with the card otherwise idle) {x32_alone[0]:.4f} ms, "
+          f"{x32_alone[0] * 1e6 / (int(lzb_out_lens[0]) // 16):.2f} ns a round; {N_CHUNKS} "
+          f"chunks {x32_alone[1]:.4f} ms; {big_raw.shape[0]} chunks {x32_alone[2]:.4f} ms")
     z_entries = zstd_kernel_times(zk, zp)
     ld_entries = lzo_deflate_times(dev, lk, lp, dk, dp)
     zc_entries = zstd_encode_times(zek, zc)
@@ -3351,6 +3541,8 @@ def main() -> None:
         {"name": "lz4_decode", "route": "cuda",
          "source": "aircompressor_tpu_torch/csrc/lz4_decode.cu",
          "replaces": "aircompressor_tpu/ops/lz4_pallas_w.py:53",
+         "redesigned": "input ring and output window in shared memory, one step a sequence",
+         "longest_chain_steps": lz4_chain["steps"], "distance_shares": lz4_shares,
          "launches": lz4_counts["lz4_decode"], "max_abs_err": lz4_decode_err,
          "ms": lzd_ms, "plain_ms": lzd_plain_ms,
          "bound_ms": dec_bound(lz4_comp_bytes, N_CHUNKS), "bound_by": "bytes",
@@ -3373,6 +3565,9 @@ def main() -> None:
          "source": "aircompressor_tpu_torch/csrc/xxh32.cu",
          "replaces": "aircompressor_tpu/ops/xxhash_jax.py:176",
          "note": "the JAX package's xxh32 is XLA, not a Pallas kernel",
+         "redesigned": "one lane per accumulator over staged loads",
+         "chain_floor_ms": x32_alone[0], "kernel_ms": x32_alone[1],
+         "tiled_kernel_ms": x32_alone[2],
          "launches": lz4_counts["xxh32"], "max_abs_err": xxh32_err,
          "ms": x32_ms, "plain_ms": x32_plain_ms,
          "bound_ms": xxh_bound(raw256, N_CHUNKS), "bound_by": "bytes",

@@ -196,3 +196,58 @@ def test_four_accumulators_merged_as_the_kernel_merges_them(seed):
     plain = _u64(xxhash.xxh64_plain(torch.from_numpy(data), torch.from_numpy(lengths), seed))
     assert [_lanes_then_merge(data[i, :n].tobytes(), seed)
             for i, n in enumerate(lengths)] == plain
+
+
+M32 = (1 << 32) - 1
+
+
+def _xxh32_lanes_then_merge(row: bytes, seed: int) -> int:
+    """XXH32 as the kernel computes it: four accumulators, each over its own
+    4 bytes of every 16-byte stripe and computed apart from the others (one
+    lane each), then one lane's rotate-sum, length add, tail of <= 3 words
+    and <= 3 bytes, and avalanche in the reference's order."""
+    def rotl(x, r):
+        return ((x << r) | (x >> (32 - r))) & M32
+
+    def le(at, n):
+        return int.from_bytes(row[at:at + n], "little")
+
+    n, stripes = len(row), len(row) // 16
+    inits = [seed + xxhash.P32_1 + xxhash.P32_2, seed + xxhash.P32_2, seed,
+             seed - xxhash.P32_1]
+    v = []
+    for j in range(4):  # one lane's accumulator, alone
+        acc = inits[j] & M32
+        for s in range(stripes):
+            acc = rotl((acc + le(16 * s + 4 * j, 4) * xxhash.P32_2) & M32, 13) * xxhash.P32_1 & M32
+        v.append(acc)
+    if n >= 16:
+        h = (rotl(v[0], 1) + rotl(v[1], 7) + rotl(v[2], 12) + rotl(v[3], 18)) & M32
+    else:
+        h = (seed + xxhash.P32_5) & M32
+    h = (h + n) & M32
+    off = 16 * stripes
+    while off + 4 <= n:
+        h = rotl((h + le(off, 4) * xxhash.P32_3) & M32, 17) * xxhash.P32_4 & M32
+        off += 4
+    while off < n:
+        h = rotl((h + row[off] * xxhash.P32_5) & M32, 11) * xxhash.P32_1 & M32
+        off += 1
+    h = (h ^ (h >> 15)) * xxhash.P32_2 & M32
+    h = (h ^ (h >> 13)) * xxhash.P32_3 & M32
+    return h ^ (h >> 16)
+
+
+@pytest.mark.parametrize("seed", [0, 0x9E3779B1])
+def test_xxh32_four_accumulators_merged_as_the_kernel_merges_them(seed):
+    """Lengths 0-65 and 65,536 in rows of 65,536 bytes (a multiple of 16 *
+    UNROLL, as ``xxhash_jax.xxh32`` asserts): the kernel's split of the
+    stripe loop over four lanes, merged by one, equals ``xxh32_plain`` and
+    ``xxhash_jax.xxh32``."""
+    lens = list(range(66)) + [65536]
+    data, lengths = _batch(65536, lens, 47)
+    plain = xxhash.xxh32_plain(torch.from_numpy(data), torch.from_numpy(lengths), seed).tolist()
+    want = np.asarray(xxhash_jax.xxh32(jnp.asarray(data), jnp.asarray(lengths),
+                                       seed=seed)).tolist()
+    got = [_xxh32_lanes_then_merge(data[i, :n].tobytes(), seed) for i, n in enumerate(lengths)]
+    assert got == plain == want
