@@ -51,6 +51,7 @@ _SIGNATURES = {
     "acx_xxh32": [_P, _P, _I, _I, _U32, _P, _P],
     "acx_zstd_huffman": [_P, _L, _P, _P, _I, _P, _P, _P],
     "acx_zstd_fse": [_P, _L, _P, _P, _P, _I, _P, _P, _P, _P],
+    "acx_zstd_fse_blocks_per_sm": [],
     "acx_zstd_execute": [_P, _L, _P, _L, _P, _P, _P, _I, _P, _I, _P, _P, _P],
     "acx_lzo_decode": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P],
     "acx_deflate_decode": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P],

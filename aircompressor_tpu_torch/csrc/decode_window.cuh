@@ -1,9 +1,11 @@
 // Shared-memory staging for the decode kernels that keep a chunk's input and
 // its recent output in shared memory: cp.async wrappers, an input ring, an
 // output window that drains to device memory in 16-byte stores, and a
-// reciprocal table for k mod d. Used by csrc/lzo_decode.cu,
-// csrc/lz4_decode.cu and csrc/zstd_execute.cu; one warp runs each ring and
-// window.
+// reciprocal table for k mod d, and a backward ring for bit streams read
+// from their end. Used by csrc/lzo_decode.cu, csrc/lz4_decode.cu,
+// csrc/snappy_decode_r2.cu and csrc/zstd_execute.cu (the input ring and
+// the output window: one warp runs each) and csrc/zstd_fse.cu (the
+// backward ring: a warp, or a group of lanes of one).
 //
 // Input ring (kRingBytes, slices of 512 B: 2 KB beside a small window, 4 KB
 // beside a 32 KB one). A byte stream of a device buffer is addressed by ring
@@ -55,6 +57,13 @@ __constant__ uint32_t kRecip[64] = {
 // takes a predicate.
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// v, kept in a register: the compiler may not rebuild it (a shared base it
+// would otherwise recompute from SR_CgaCtaId at each use inside a loop).
+__device__ __forceinline__ uint32_t opaque(uint32_t v) {
+  asm volatile("" : "+r"(v));
+  return v;
 }
 
 __device__ __forceinline__ uint32_t lds_u8(uint32_t a) {
@@ -187,6 +196,92 @@ struct InputRing {
 
   __device__ __forceinline__ uint32_t at(int p) const {
     return lds_u8(ring + (p & (kRingBytes - 1)));
+  }
+
+  // The 8 ring bytes from coordinate p, a multiple of 8.
+  __device__ __forceinline__ uint64_t at8(int p) const {
+    return lds_u64(ring + (p & (kRingBytes - 1)));
+  }
+};
+
+// Backward ring (kRingBytes in slices of kBackSlice bytes) for a byte
+// stream read from its end toward its start, as a backward bit stream is.
+// Coordinates as the input ring's: P = index - origin, with coordinate 0 on
+// a 16-byte boundary of the buffer's address. Slices arrive by cp.async
+// from the top down, 16 B a lane of the kLanes lanes that run the ring
+// (under `mask`: a warp, or a group of lanes of one), all but two slices of
+// the ring ahead of the one being read: a slice is issued only once the
+// one a ring above is consumed, so after need(c) the bytes from c to the
+// top of the slice above the one holding c are readable (at least
+// kBackSlice bytes from c). Bytes outside [lo, hi) are never loaded; the
+// caller reads them as 0.
+constexpr int kBackSlice = 256;
+
+template <int kRingBytes, int kLanes>
+struct BackRing {
+  static constexpr int kAhead = kRingBytes / kBackSlice - 2;  // slices in flight
+  static_assert(kAhead >= 1, "a backward ring holds at least three slices");
+  uint32_t ring;          // shared address of kRingBytes, 16-byte aligned
+  const uint8_t* base16;  // device address of ring coordinate 0
+  int lo, hi;             // ring coordinates of the bytes to load
+  int alo, ahi;           // coordinates a 16-byte cp.async may cover
+  int next;               // the next slice to issue (counting down; < 0: none)
+  int ready;              // the lowest slice that has arrived
+  int lane;               // this lane's place among the kLanes
+  unsigned mask;
+
+  // Streams buf[from, to) of a buffer whose readable indices are [0, len),
+  // from its top down; the coordinate of index from is its address mod 16,
+  // so slice 0 is the last. Issues the first kAhead slices. Any cp.async still in flight into
+  // the ring must be waited for first (wait_all) when the ring is reused.
+  __device__ __forceinline__ void start(uint32_t ring_, const uint8_t* buf, long long len,
+                                        long long from, long long to, int lane_,
+                                        unsigned mask_) {
+    ring = ring_;
+    lane = lane_;
+    mask = mask_;
+    const long long origin =
+        from - static_cast<long long>(reinterpret_cast<uintptr_t>(buf + from) & 15);
+    base16 = buf + origin;
+    alo = static_cast<int>(max(-origin, static_cast<long long>(INT_MIN)));
+    ahi = static_cast<int>(min(max(len - origin, 0LL), static_cast<long long>(INT_MAX)));
+    lo = static_cast<int>(from - origin);
+    hi = static_cast<int>(min(max(min(to, len) - origin, static_cast<long long>(lo)),
+                              static_cast<long long>(INT_MAX)));
+    next = hi > lo ? (hi - 1) / kBackSlice : -1;
+    ready = next + 1;
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) issue();
+  }
+
+  // Slice `next`: its 16-byte units that hold bytes of [lo, hi), kLanes at
+  // a time; units that reach outside [alo, ahi) by bytes.
+  __device__ __forceinline__ void issue() {
+    if (next >= 0) {
+      for (int u = next * kBackSlice + 16 * lane; u < (next + 1) * kBackSlice; u += 16 * kLanes) {
+        if (u < hi && u + 16 > lo) {
+          const uint32_t to = ring + (u & (kRingBytes - 1));
+          if (u >= alo && u + 16 <= ahi) {
+            cp_async16(to, base16 + u);
+          } else {
+            for (int p = max(u, lo); p < min(u + 16, hi); ++p) sts_u8_if(true, to + (p - u), base16[p]);
+          }
+        }
+      }
+    }
+    cp_async_commit();  // one group per slice, empty or not
+    --next;
+  }
+
+  // Ring bytes from coordinate c upward (to the top of the slice above c's)
+  // have arrived and are visible to the lanes of `mask`.
+  __device__ __forceinline__ void need(int c) {
+    while (__builtin_expect(ready > 0 && ready * kBackSlice > c, 0)) {
+      cp_async_wait_pending<kAhead - 1>();
+      __syncwarp(mask);
+      --ready;
+      issue();
+    }
   }
 
   // The 8 ring bytes from coordinate p, a multiple of 8.

@@ -188,25 +188,28 @@ def trace(outdir: str):
     prof.export_chrome_trace(path)
 
 
-def kernel_ms(fn, kernel: str, reps: int, outdir: str) -> float:
+def kernel_ms(fn, kernel: str, reps: int, outdir: str, traces: int = 3) -> float:
     """Mean device time of the CUDA kernels whose name holds ``kernel``
     over ``reps`` calls of fn (after one warm-up call), from the kernel
     events of a ``trace`` into ``outdir``: the kernel alone, without the
-    wrapper's allocations, copies and host time. Raises if the trace holds
-    no such kernel."""
+    wrapper's allocations, copies and host time. The profiler now and then
+    returns a trace without the device's kernel events, so a trace without
+    the kernel is taken again, up to ``traces`` in all; raises if none
+    holds it."""
     import json
 
     fn()
-    with trace(outdir) as path:
-        for _ in range(reps):
-            fn()
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    durs = [e["dur"] for e in events
-            if e.get("cat") == "kernel" and kernel in e.get("name", "")]
-    if not durs:
-        raise RuntimeError(f"the trace holds no kernel named like {kernel!r}")
-    return sum(durs) / len(durs) / 1e3
+    for _ in range(traces):
+        with trace(outdir) as path:
+            for _ in range(reps):
+                fn()
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        durs = [e["dur"] for e in events
+                if e.get("cat") == "kernel" and kernel in e.get("name", "")]
+        if durs:
+            return sum(durs) / len(durs) / 1e3
+    raise RuntimeError(f"{traces} traces hold no kernel named like {kernel!r}")
 
 
 def main(argv=None) -> None:

@@ -34,7 +34,12 @@ the first token, as in ``snappy_decode``, where the JAX kernel reads the
 zeros of its padding.
 
 ``decode`` launches ``csrc/snappy_decode_r2.cu`` for a CUDA tensor and
-uses ``decode_plain`` only for a tensor on the CPU.
+uses ``decode_plain`` only for a tensor on the CPU. The kernel keeps the
+loop above and each chunk's input in a shared-memory ring and its recent
+output in a shared-memory window (``WINDOWS``, two instantiations of one
+template): 32 KB up to ``SMALL_BATCH`` chunks, 4 KB above, so that 4096
+chunks fit the card in one wave. A copy with ``dist`` up to ``copy_reach``
+reads the window, a farther one device memory.
 """
 
 from __future__ import annotations
@@ -49,11 +54,21 @@ from ._rows import MAX_CHUNK as MAX_OUT, check_decode_args
 
 GROUP = 32  # chunks a grid step of the JAX kernel: the rows that share a count
 WINDOW = 128  # bytes of output an iteration emits at most, aligned to 128
+WINDOWS = (4096, 32768)  # the kernel's output windows in shared memory, in bytes
+SMALL_BATCH = 792  # the most chunks that take the 32 KB window (kSmallBatchChunks)
 
 # Kernel launches and the chunks they decoded, for runs that must show the
 # kernel was used. Only a launch of the CUDA kernel adds to them.
 launches = 0
 rows = 0
+
+
+def copy_reach(window: int) -> int:
+    """The farthest copy distance the kernel reads from a shared-memory
+    window of this size (window - window / 16: an iteration adds at most 128
+    bytes, and a drain waits for half the window); a farther copy reads
+    device memory."""
+    return window - window // 16
 
 
 def decode(comp: torch.Tensor, comp_lens: torch.Tensor,

@@ -10,7 +10,9 @@ one launch of each kernel for the whole batch, with no fixed geometry:
 - ``fse_sequences`` (``csrc/zstd_fse.cu``): every sequences section into
   (literal length, match length, offset) triples, a frame's sections in
   block order with the repeat offsets carried across them, and each
-  section's final bit count and error flag;
+  section's final bit count and error flag. A group of 8 lanes (four
+  frames a warp) walks a frame over its tables staged in shared memory and
+  a backward ring of the section's bytes;
 - ``execute`` (``csrc/zstd_execute.cu``): each frame's blocks and sequences
   into its output row, with its length and ok flag. It takes a block's
   sequences in rounds of up to 32 and keeps each frame's recent output in a
@@ -61,7 +63,8 @@ MAX_OUT = 65536
 H_WORDS = 32  # a Huffman stream: byte_lo, rem, nsym, out_base, table_log, 3 x 0,
 H_RANK_START = 8  # rank_start[1..12] at words 8..19,
 H_CUM_SYMS = 20  # cum_syms[0..11] at words 20..31
-S_WORDS = 8  # a sequences section: byte_lo, rem, nseq, out_base, ll, of, ml states, 0
+S_WORDS = 8  # a sequences section: byte_lo, rem, nseq, out_base, ll, of, ml states,
+S_LOGS = 7  # and its table logs: ll_log | of_log << 8 | ml_log << 16
 S_TABLE = 1280  # its FSE entries: LL 512, OF 256, ML 512
 B_WORDS = 16  # a block: n_seq, seq_base, lit_total, 0, kind[4], src[4], end[4]
 SRC_PAD = 8  # zero bytes after the input: the kernels' 8-byte windows
@@ -177,30 +180,43 @@ def huffman_decode_plain(src, params, perm, lit_size: int):
 
 # ---------------------------------------------------------------- kernel C
 
+def fse_waves(n_frames: int, device=None) -> int:
+    """Waves of blocks the FSE kernel runs on the card for ``n_frames``
+    frames: its blocks (one warp, four frames) over the SMs times the blocks
+    an SM holds."""
+    per_sm = _build.load().acx_zstd_fse_blocks_per_sm()
+    if per_sm <= 0:
+        raise RuntimeError(f"zstd fse occupancy query failed: CUDA error {-per_sm}")
+    sms = torch.cuda.get_device_properties(device or 0).multi_processor_count
+    return -(-n_frames // (4 * per_sm * sms))
+
+
 def fse_sequences(src: torch.Tensor, params: torch.Tensor, tabs: torch.Tensor,
                   frames: torch.Tensor, seq_slots: int):
     """Decode every sequences section of a batch, a frame's sections in order.
 
-    ``params`` (S, 8) int32 one row a section (see S_WORDS), ``tabs`` (S,
-    1280) int32 its packed FSE entries, ``frames`` (F, 2) int32 each frame's
-    first section and count; every section holds at least one sequence. The
-    repeat offsets start at (1, 4, 8) once per frame. Returns ``(seq3, rem,
-    err)``: (seq_slots, 3) int32 (literal length, match length, offset) with
-    section s's triples from its out_base, and (S,) int32 final bit counts
-    and error flags."""
+    ``params`` (S, 8) int32 one row a section (see S_WORDS, S_LOGS), ``tabs``
+    (S, 1280) int32 its packed FSE entries (a table of log L uses its first
+    2^L), ``frames`` (F, 2) int32 each frame's first section and count;
+    every section holds at least one sequence. The repeat offsets start at
+    (1, 4, 8) once per frame. Returns ``(seq3, rem, err)``: (seq_slots, 3)
+    int32 (literal length, match length, offset) with section s's triples
+    from its out_base, and (S,) int32 final bit counts and error flags."""
     global fse_launches
     _check(src=(src, torch.uint8, None), params=(params, torch.int32, S_WORDS),
            tabs=(tabs, torch.int32, S_TABLE), frames=(frames, torch.int32, 2))
     if src.device.type == "cpu":
         return fse_sequences_plain(src, params, tabs, frames, seq_slots)
+    if tabs.data_ptr() % 16:
+        raise ValueError("the zstd fse kernel stages tabs by 16-byte copies: align it")
     S, F = params.shape[0], frames.shape[0]
     seq3 = torch.zeros((seq_slots, 3), dtype=torch.int32, device=src.device)
     rem = torch.zeros(S, dtype=torch.int32, device=src.device)
     err = torch.zeros(S, dtype=torch.int32, device=src.device)
     if F:
         _cuda_call("fse", src, src.data_ptr(), src.numel(), params.data_ptr(),
-                   tabs.data_ptr(), frames.data_ptr(), F, seq3.data_ptr(),
-                   rem.data_ptr(), err.data_ptr())
+                   tabs.data_ptr(), frames.data_ptr(), F,
+                   seq3.data_ptr(), rem.data_ptr(), err.data_ptr())
         fse_launches += 1
     return seq3, rem, err
 
@@ -493,8 +509,9 @@ def pack(plan: dp.BatchPlan, device) -> Packed:
     s_params = np.zeros((len(ss), S_WORDS), np.int32)
     s_tabs = np.zeros((len(ss), S_TABLE), np.int32)
     if ss:
-        s_params[:, :7] = [[s.byte_lo, s.rem_init, s.nseq, s.out_base, s.ll_state,
-                            s.of_state, s.ml_state] for s in ss]
+        s_params[:] = [[s.byte_lo, s.rem_init, s.nseq, s.out_base, s.ll_state,
+                        s.of_state, s.ml_state, s.ll_log | s.of_log << 8 | s.ml_log << 16]
+                       for s in ss]
         s_tabs[:] = [np.concatenate([s.ll_entries, s.of_entries, s.ml_entries])
                      for s in ss]
     rows, h_frame, s_frame, h_counts, s_counts = [], [], [], [], []

@@ -74,7 +74,17 @@ and the emission kernel on their plans, a one-sequence plan, a row with
 nseq 0, a row of random fields and an overflowing row; the xxHash kernels at nonzero seeds, and xxh64 at 1, 7 and 257
 rows of 64 KB and 65,531 B; the r2 Snappy decode kernel on 45 rows in two
 groups of 32 (synthetic, malformed and 64 KB corpus blocks) at out_cap
-65536 and 4096, steps included, and each row alone against its own count;
+65536 and 4096, steps included, and each row alone against its own count,
+and both of its windows (257 and 793 rows of an odd width) on those rows
+and its hand-built window cases (copies at each reach - 1, reach and reach
++ 1, dist 65,535, dist-1 and dist-3 runs, literals across ring slices) at
+out_cap 65536, 4096 and 4093, also against kernel #1; the zstd FSE kernel
+on hand-built sections (tables at logs
+9/8/9 and the predefined ones, RLE tables, one sequence, an OF code above
+23, a repeat offset of 0, reads below the start and past the input, three
+sections a frame, a frame without one), on a 64 KB frame of short
+matches with the libzstd fixture and on the zstd path's 256 and 4096
+frames (the r2 kernel likewise on its path's chunks);
 both output windows of the Snappy decode kernel on its window cases (a 64
 KB dist-1 run, a 64 KB literal, copies at each window's reach +- 1) at
 out_cap 65536 and 4093, 257 and 793 rows of an odd width and each row
@@ -85,7 +95,9 @@ the corpus. It prints the share of the corpus's Snappy, deflate, LZO and
 LZ4 copies and zstd matches within each window's reach, the DFAST, deflate,
 LZO, LZ4 decode and encode kernels' ns a step of the corpus's longest
 chain, the xxh32 kernel's time on one 64 KB stream alone, the zstd
-execute kernel's ns a sequence of the longest frame and the zstd Huffman
+execute and FSE kernels' ns a sequence of the longest frame (the FSE
+kernel's also its waves and the frame alone), the r2 decode's ns a window
+of its longest group (and the chunk alone) and the zstd Huffman
 and emission kernels' ns a symbol of the longest stream, the encode kernels' times at
 five shared-memory carveouts and the Huffman kernel's at its launch
 settings, and the Huffman and emission kernels alone (device time from a
@@ -239,6 +251,43 @@ def snappy_window_cases() -> list[tuple[str, bytes]]:
             tokens.append(snappy_copy(length, max(dist, 1)))
         n += length
     cases.append(("mixed", block(tokens, n)))
+    return cases
+
+
+def r2_window_cases() -> list[tuple[str, bytes]]:
+    """Hand-built Snappy blocks for the r2 decode kernel's input ring and
+    output windows: copies at each window's reach - 1, reach and reach + 1
+    (reach = window - window / 16), a copy at dist 65,535, dist-1 and dist-3
+    runs that double, and literals across input-ring slices (one of 3,000
+    bytes at an odd input offset, one of 62,467)."""
+    from aircompressor_tpu_torch.ops.snappy_decode_r2 import WINDOWS, copy_reach
+
+    rng = np.random.default_rng(12)
+
+    def noise(n: int) -> bytes:
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+    def block(tokens: list[bytes]) -> bytes:
+        n = 0
+        for t in tokens:  # a literal's length is its bytes; a copy's its tag
+            n += len(t) - (1 + max((t[0] >> 2) - 59, 0)) if t[0] & 3 == 0 else (t[0] >> 2) + 1
+        return _varint(n) + b"".join(tokens)
+
+    cases = []
+    for window in WINDOWS:
+        reach = copy_reach(window)
+        tokens = [snappy_literal(noise(reach + 300))]
+        for dist in (reach - 1, reach, reach + 1):
+            tokens += [snappy_literal(noise(1 + dist % 5)), snappy_copy(64, dist),
+                       snappy_copy(40, dist), snappy_copy(7, 2)]
+        cases.append((f"reach-{window}", block(tokens)))
+    cases.append(("dist-65535", block([snappy_literal(noise(65535)), snappy_copy(1, 65535)])))
+    cases.append(("dist1-dist3-runs", block(
+        [snappy_literal(b"x")] + [snappy_copy(64, 1)] * 40 + [snappy_literal(b"abc")]
+        + [snappy_copy(64, 3)] * 40 + [snappy_copy(5, 3)])))
+    cases.append(("literal-slices", block(
+        [snappy_literal(noise(5)), snappy_literal(noise(3000)), snappy_copy(64, 3000),
+         snappy_literal(noise(CHUNK - 3069))])))
     return cases
 
 
@@ -516,6 +565,85 @@ def zstd_full_cases() -> list[bytes]:
     from aircompressor_tpu_torch.ops.batch import _selfcheck_payload
 
     return [bytes(CHUNK)] + [_selfcheck_payload(seed) for seed in (0, 33, 34, 96, 251)]
+
+
+def fse_short_match_chunk(n: int = CHUNK) -> bytes:
+    """n bytes of 48 random tokens of 3 to 6 bytes in random order. The host
+    encoder at level 3 makes one sequences section of short matches of it:
+    at 64 KB 7,104 sequences over a 15.8 KB bitstream, some sixty slices of
+    the FSE kernel's backward ring."""
+    rng = np.random.default_rng(5)
+    toks = [rng.integers(0, 256, int(rng.integers(3, 7)), dtype=np.uint8).tobytes()
+            for _ in range(48)]
+    return b"".join(toks[i] for i in rng.integers(0, 48, n // 3 + 1))[:n]
+
+
+def fse_section_cases() -> tuple[list[str], dict]:
+    """Hand-built sequences sections for the FSE kernel, packed as
+    ``fse_sequences`` takes them (src, params, tabs, frames, seq_slots), one
+    frame a case: random tables at the largest logs (9/8/9) over a
+    bitstream of several ring slices; the predefined tables; RLE tables;
+    one sequence; an OF code above 23 (err, 23 bits read); a repeat offset
+    that resolves to 0 (err); a section that reads below its start (err);
+    three sections whose repeat offsets carry across them; a frame with no
+    section (blocks without sequences); and last a section whose top bytes
+    lie past the input (read as 0). Bitstreams are random bytes at uneven
+    offsets; initial states random below each table's size."""
+    from aircompressor_tpu_torch.host.zstd import fse
+    from aircompressor_tpu_torch.host.zstd.device_prep import _pack_fse, _predefined
+    from aircompressor_tpu_torch.ops.zstd_decode import S_TABLE, S_WORDS
+
+    rng = np.random.default_rng(14)
+    src = bytearray()
+    params, tabs, frames, names = [], [], [], []
+    slots = 0
+
+    def table(log: int, max_sym: int, low: int = 2):
+        n = int(rng.integers(low + 1, min(max_sym + 1, 1 << log) + 1))
+        syms = rng.choice(max_sym + 1, n, replace=False)
+        counts = np.zeros(max_sym + 1, np.int64)
+        counts[syms[:low]] = -1  # "less than one" probabilities
+        counts[syms[low:]] = 1 + rng.multinomial((1 << log) - n, rng.dirichlet(np.ones(n - low)))
+        return fse.build_decode_table(counts, log)
+
+    def section(ll, of, ml, nseq: int, nbytes: int, fill=None, cut: int = 3) -> None:
+        nonlocal slots
+        src.extend(rng.integers(0, 256, int(rng.integers(1, 16)), dtype=np.uint8).tobytes())
+        byte_lo = len(src)
+        src.extend(bytes([fill]) * nbytes if fill is not None
+                   else rng.integers(0, 256, nbytes, dtype=np.uint8).tobytes())
+        states = [int(rng.integers(0, 1 << t.log2_size)) for t in (ll, of, ml)]
+        params.append([byte_lo, 8 * nbytes - cut, nseq, slots, *states,
+                       ll.log2_size | of.log2_size << 8 | ml.log2_size << 16])
+        tabs.append(np.concatenate([_pack_fse(ll, 512), _pack_fse(of, 256), _pack_fse(ml, 512)]))
+        slots += -(-nseq // 128) * 128
+
+    def frame(name: str, sections: list) -> None:
+        frames.append([len(params), len(sections)])
+        names.append(name)
+        for args in sections:
+            section(*args[:5], **(args[5] if len(args) > 5 else {}))
+
+    ll_max, of_max, ml_max = 35, 23, 52  # codes past 23 only in "of-code-26"
+    rle = fse.build_rle_table
+    frame("max-logs", [(table(9, ll_max), table(8, of_max), table(9, ml_max), 700, 4000)])
+    frame("predefined", [(_predefined("ll"), _predefined("of"), _predefined("ml"), 300, 1500)])
+    frame("rle", [(rle(20), rle(10), rle(40), 60, 500)])
+    frame("one-sequence", [(table(5, ll_max), table(5, of_max), table(5, ml_max), 1, 12)])
+    frame("of-code-26", [(table(6, ll_max), rle(26), table(6, ml_max), 20, 120)])
+    frame("repeat-offset-0", [(rle(0), rle(1), rle(0), 3, 8, {"fill": 0xFF})])
+    frame("below-start", [(table(9, ll_max), table(8, of_max), table(9, ml_max), 40, 8)])
+    frame("three-blocks", [(table(int(rng.integers(6, 10)), ll_max),
+                            table(int(rng.integers(5, 9)), of_max),
+                            table(int(rng.integers(6, 10)), ml_max), 120, 900) for _ in range(3)])
+    frame("no-sequences", [])
+    frame("past-the-input", [(table(7, ll_max), table(6, of_max), table(7, ml_max), 50, 400)])
+    del src[-40:]  # the last section's top 40 bytes lie past the input
+    return names, {
+        "src": np.frombuffer(bytes(src), np.uint8).copy(),
+        "params": np.array(params, np.int32).reshape(-1, S_WORDS),
+        "tabs": np.array(tabs, np.int32).reshape(-1, S_TABLE),
+        "frames": np.array(frames, np.int32).reshape(-1, 2), "seq_slots": slots}
 
 
 def _huffman_table(weights: list[int]):
@@ -1644,7 +1772,7 @@ def zstd_plain_check(pk) -> tuple[dict, float, int]:
     k_s = zstd_decode.fse_sequences(*s_args)
     t0 = time.perf_counter()
     p_h = zstd_decode.huffman_decode_plain(*h_args)
-    p_s = zstd_decode.fse_sequences_plain(*s_args)
+    p_s = zstd_decode.fse_sequences_plain(*s_args[:5])
     x_args = (pk.src, p_h[0], p_s[0], pk.b_frames, pk.blocks)
     p_x = zstd_decode.execute_plain(*x_args)
     torch.cuda.synchronize()
@@ -1689,6 +1817,7 @@ def zstd_kernels_against_plain(dev) -> dict:
     errs["zstd_huffman"] = max(errs["zstd_huffman"],
                                huffman_lanes_against_plain(dev, (pk, full_pk)))
     errs["zstd_execute"] = max(errs["zstd_execute"], execute_rounds_against_plain(dev))
+    errs["zstd_fse"] = max(errs["zstd_fse"], fse_sections_against_plain(dev))
 
     res, full_res = zstd_decode.decode_plan(pk), zstd_decode.decode_plan(full_pk)
     ok, checksum_ok = res["ok"].tolist(), res["checksum_ok"].tolist()
@@ -1754,6 +1883,68 @@ def execute_rounds_against_plain(dev) -> int:
           f"({', '.join(names)}) tiled to 257 and {zstd_decode.EXECUTE_SMALL_BATCH + 1} "
           f"frames, out_cap {CHUNK} (and 4093 at 257), kernel == plain (out, out_len, ok), "
           f"max_abs_err {err}")
+    return err
+
+
+def tile_sections(a: dict, n: int) -> dict:
+    """``n`` copies of a packed batch of sequences sections (one frame each
+    per copy), each copy's triples in slots of its own."""
+    S, slots = a["params"].shape[0], a["seq_slots"]
+    return dict(src=a["src"],
+                params=np.concatenate([a["params"] + np.array([0, 0, 0, k * slots, 0, 0, 0, 0],
+                                                              np.int32) for k in range(n)]),
+                tabs=np.tile(a["tabs"], (n, 1)),
+                frames=np.concatenate([a["frames"] + np.array([k * S, 0], np.int32)
+                                       for k in range(n)]),
+                seq_slots=n * slots)
+
+
+def fse_sections_against_plain(dev) -> int:
+    """Hold the FSE kernel to its plain version on all three outputs: on
+    the hand-built sections
+    (``fse_section_cases``, three copies: 30 frames) and on a batch of the
+    64 KB short-match chunk through the host encoder (one section of
+    thousands of sequences over many ring slices) and the libzstd fixture's
+    frames (multi-block, repeat offsets carried across blocks: F7), whose
+    frames then decode to their originals. Return the max_abs_err."""
+    from aircompressor_tpu_torch.data import libzstd_frames
+    from aircompressor_tpu_torch.host.zstd import device_prep, frame_enc
+    from aircompressor_tpu_torch.ops import zstd_decode
+
+    names, a = fse_section_cases()
+    t = tile_sections(a, 3)
+    hand = tuple(torch.from_numpy(t[k]).to(dev) for k in ("src", "params", "tabs", "frames"))
+    hand += (t["seq_slots"],)
+    fixture = libzstd_frames()
+    chunk = fse_short_match_chunk()
+    frames = [frame_enc.compress_bytes(chunk, 3)] + [f["frame"] for f in fixture]
+    want = [chunk] + [f["original"] for f in fixture]
+    plan = device_prep.plan_batch(frames, CHUNK)
+    pk = zstd_decode.pack(plan, dev)
+    real = (pk.src, pk.s_params, pk.s_tabs, pk.s_frames, pk.seq_slots)
+    err = 0
+    for what, args in (("hand-built", hand), ("short-match and libzstd", real)):
+        p = zstd_decode.fse_sequences_plain(*args)
+        k = zstd_decode.fse_sequences(*args)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("seq3", "rem", "err"), k, p):
+            require(torch.equal(x, y), f"zstd_fse {name} equal plain on the {what} sections")
+        err = max(err, max(int((x.long() - y.long()).abs().max()) if x.numel() else 0
+                           for x, y in zip(k, p)))
+    res = zstd_decode.decode_plan(pk)
+    require(bool(res["ok"].all()) and bool(res["checksum_ok"].all()),
+            "the short-match and libzstd frames decode ok")
+    for i, w in enumerate(want):
+        require(int(res["out_len"][i]) == len(w)
+                and res["out"][i, :len(w)].cpu().numpy().tobytes() == w,
+                f"short-match batch frame {i} decodes to its original")
+    flags = zstd_decode.fse_sequences_plain(*hand)[2].tolist()[:a["params"].shape[0]]
+    big = max(plan.seq_streams, key=lambda s: s.nseq)
+    print(f"zstd_fse: the hand-built sections "
+          f"({', '.join(names)}; err {flags}) tiled to {len(t['frames'])} frames, and the "
+          f"64 KB short-match frame ({big.nseq} sequences, "
+          f"{big.rem_init // 8} B of bitstream) with the {len(fixture)} libzstd frames: kernel == "
+          f"plain (seq3, rem, err), frames == originals, max_abs_err {err}")
     return err
 
 
@@ -1859,7 +2050,19 @@ def zstd_decode_path(dev, corpus: list[bytes], sustain: int = SUSTAIN) -> dict:
           f"{len(big_plan.seq_streams)} sequences sections")
     print(f"zstd path launches {counts}, {exec_frames} of {n_all} frames through the "
           f"execute kernel")
-    return dict(plan=plan, pk=zstd_decode.pack(plan, dev), big_plan=big_plan,
+    pk = zstd_decode.pack(plan, dev)
+    fse_err = 0  # the FSE kernel against its plain version on both batches
+    for what, p in (("the corpus's", pk), ("the tiled", big_pk)):
+        args = (p.src, p.s_params, p.s_tabs, p.s_frames, p.seq_slots)
+        k = zstd_decode.fse_sequences(*args)
+        w = zstd_decode.fse_sequences_plain(*args)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("seq3", "rem", "err"), k, w):
+            require(torch.equal(a, b), f"zstd_fse {name} equal plain on {what} frames")
+        fse_err = max(fse_err, max(int((a.long() - b.long()).abs().max()) for a, b in zip(k, w)))
+    print(f"zstd_fse on the corpus's {len(plan.frames)} frames and the {len(big_plan.frames)} "
+          f"tiled: kernel == plain (seq3, rem, err), max_abs_err {fse_err}")
+    return dict(plan=plan, pk=pk, big_plan=big_plan, fse_err=fse_err,
                 big_pk=big_pk, counts=counts, t_plan_big=t_plan_big,
                 decoded_bytes=int(big_lens.sum()), frames=frames, t_encode=t_encode)
 
@@ -1879,6 +2082,39 @@ def alone_ms(fn, kernel: str, batches):
     return dict(zip(("kernel_ms", "chunks_kernel_ms", "tiled_kernel_ms"), times))
 
 
+def fse_times(zp: dict, fn, batches) -> dict:
+    """The FSE kernel alone (profiler device time: at 256 frames its
+    wrapper's host time passes the kernel's) at the three batches; its
+    waves, ns a sequence of the longest frame and of an SM, and that frame
+    alone (the chain by itself). Returns the kernels JSON's extra keys."""
+    from aircompressor_tpu_torch import _build
+    from aircompressor_tpu_torch.host.zstd import device_prep
+    from aircompressor_tpu_torch.ops import profiling, zstd_decode
+
+    _, mid, big = batches
+    plan, big_plan = zp["plan"], zp["big_plan"]
+    per_frame = [sum(bp.n_seq for bp in fp.blocks) for fp in plan.frames]
+    longest = max(per_frame)
+    total = sum(s.nseq for s in big_plan.seq_streams)
+    n_mid, n_big = len(plan.frames), len(big_plan.frames)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = str(_build.BUILD_DIR.parent / "profile" / "fse")
+    alone = alone_ms(fn, "fse_kernel", batches)
+    waves = {n: zstd_decode.fse_waves(n) for n in (n_mid, n_big)}
+    one = zstd_decode.pack(device_prep.plan_batch([zp["frames"][per_frame.index(longest)]],
+                                                  CHUNK), mid[0].device)
+    one_args = (one.src, one.s_params, one.s_tabs, one.s_frames, one.seq_slots)
+    one_ms = profiling.kernel_ms(lambda: fn(*one_args), "fse_kernel", 5, out)
+    print(f"zstd_fse alone: {alone['chunks_kernel_ms'] * 1e6 / longest:.1f} ns a sequence of "
+          f"the longest frame ({longest} sequences) at {n_mid} frames; "
+          f"{alone['tiled_kernel_ms'] * 1e6 * sms / total:.2f} ns a sequence of an SM (all "
+          f"{total} sequences over {sms} SMs) at {n_big}; that frame alone {one_ms:.4f} ms "
+          f"({one_ms * 1e6 / longest:.1f} ns a sequence); waves {waves}")
+    return {"redesigned": "PR 14", "longest_chain_steps": longest,
+            "chain_alone_ms": one_ms, **alone,
+            "waves": {str(k): v for k, v in waves.items()}}
+
+
 def zstd_kernel_times(zk: dict, zp: dict) -> list[dict]:
     """Time each zstd kernel by CUDA events on the comparison batch (beside
     its plain version, in turns), on the corpus's frames and on the tiled
@@ -1887,7 +2123,8 @@ def zstd_kernel_times(zk: dict, zp: dict) -> list[dict]:
     from aircompressor_tpu_torch.ops import zstd_decode
 
     fns = {"zstd_huffman": (zstd_decode.huffman_decode, zstd_decode.huffman_decode_plain, 103),
-           "zstd_fse": (zstd_decode.fse_sequences, zstd_decode.fse_sequences_plain, 277),
+           "zstd_fse": (zstd_decode.fse_sequences,
+                        lambda *a: zstd_decode.fse_sequences_plain(*a[:5]), 277),
            "zstd_execute": (zstd_decode.execute, zstd_decode.execute_plain, 543)}
     plans = (zk["plan"], zp["plan"], zp["big_plan"])
     args = [zstd_args(pk) for pk in (zk["pk"], zp["pk"], zp["big_pk"])]
@@ -1916,6 +2153,8 @@ def zstd_kernel_times(zk: dict, zp: dict) -> list[dict]:
                   f"frame ({longest} sequences) at {n_mid} frames; "
                   f"{ms_big * 1e6 * sms / total:.2f} ns a sequence of an SM (all {total} "
                   f"sequences over {sms} SMs) at {n_big}")
+        if name == "zstd_fse":
+            extra = fse_times(zp, fn, (small, mid, big))
         if name == "zstd_huffman":
             extra = {"redesigned": "PR 11", **alone_ms(fn, "huffman_kernel", (small, mid, big))}
             longest = max(h.nsym for h in zp["plan"].huff_streams)
@@ -1928,7 +2167,8 @@ def zstd_kernel_times(zk: dict, zp: dict) -> list[dict]:
         entries.append({
             "name": name, "route": "cuda", "source": f"aircompressor_tpu_torch/csrc/{name}.cu",
             "replaces": f"aircompressor_tpu/ops/zstd_pallas.py:{line}",
-            "launches": zp["counts"][name], "max_abs_err": zk["errs"][name],
+            "launches": zp["counts"][name],
+            "max_abs_err": max(zk["errs"][name], zp["fse_err"] if name == "zstd_fse" else 0),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_small, "bound_by": "bytes",
             "library_ms": None, "batch": f"{n_small} frames of <= 16 KB",
             "chunks": n_mid, "chunks_ms": ms_mid, "chunks_bound_ms": b_mid,
@@ -2812,6 +3052,49 @@ def snappy_r2_against_plain(dev, corpus: list[bytes]) -> dict:
           f"and steps (group maxima {steps[0]} and {steps[32]}), == kernel #1 on out, "
           f"out_lens and ok, max_abs_err {err}; each of the {len(blobs)} rows alone "
           f"== its own count (largest {max(own)})")
+    return max(err, r2_windows_against_plain(dev, blobs))
+
+
+def r2_windows_against_plain(dev, blobs: list[bytes]) -> int:
+    """Hold both windows of the r2 decode kernel to its plain version on all
+    four outputs, and to kernel #1 on out, out_lens and ok: the given blobs
+    and the hand-built window cases (``r2_window_cases``) tiled to 257 rows
+    (the 32 KB window) and to SMALL_BATCH + 1 rows (the 4 KB window) of an
+    odd width, at out_cap 65536, 4096 and 4093; the window cases' bytes also
+    against the host decoder. Return the max_abs_err."""
+    from aircompressor_tpu_torch.host import snappy as host_snappy
+    from aircompressor_tpu_torch.ops import snappy_decode, snappy_decode_r2
+    from aircompressor_tpu_torch.ops.batch import _pack, to_device_batch
+
+    cases = r2_window_cases()
+    first = len(blobs)
+    blobs = blobs + [b for _, b in cases]
+    want = [host_snappy.decompress(b, CHUNK) for _, b in cases]
+    err = 0
+    for rows in (257, snappy_decode_r2.SMALL_BATCH + 1):
+        batch = (blobs * (rows // len(blobs) + 1))[:rows]
+        comp, lens = to_device_batch(*_pack(batch, max(map(len, batch)) | 1), dev)
+        for out_cap in (CHUNK, 4096, 4093):
+            k = snappy_decode_r2.decode(comp, lens, out_cap=out_cap, with_steps=True)
+            p = snappy_decode_r2.decode_plain(comp, lens, out_cap=out_cap, with_steps=True)
+            k1 = snappy_decode.decode(comp, lens, out_cap=out_cap)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("out", "out_lens", "ok", "steps"), k, p):
+                require(torch.equal(a, b), f"r2 decode {name} equal plain at out_cap "
+                                           f"{out_cap}, {rows} rows")
+            for name, a, b in zip(("out", "out_lens", "ok"), k, k1):
+                require(torch.equal(a, b), f"r2 decode {name} equal kernel #1's at out_cap "
+                                           f"{out_cap}, {rows} rows")
+            err = max(err, int((k[0].int() - p[0].int()).abs().max()))
+            for i, w in enumerate(want):
+                require(bool(k[2][first + i]) == (len(w) <= out_cap)
+                        and k[0][first + i, :min(len(w), out_cap)].cpu().numpy().tobytes()
+                        == w[:out_cap], f"r2 window case {cases[i][0]} equals the host's bytes")
+    print(f"snappy r2 decode windows {snappy_decode_r2.WINDOWS}: 257 and "
+          f"{snappy_decode_r2.SMALL_BATCH + 1} rows of an odd width ({first} comparison rows "
+          f"and {len(cases)} window cases: {', '.join(n for n, _ in cases)}), out_cap {CHUNK}, "
+          f"4096 and 4093, kernel == plain (out, out_lens, ok, steps) and == kernel #1 (out, "
+          f"out_lens, ok), cases == host decoder, max_abs_err {err}")
     return err
 
 
@@ -3198,10 +3481,20 @@ def main() -> None:
             "the r2 kernel's 4096 chunks equal kernel #1's")
     require(torch.equal(r2_big[3], r2_small[3].repeat(SUSTAIN)),
             "the 4096-chunk steps equal the 256-chunk steps tiled")
+    for what, (c, n), got in (("256", (r2_comp, r2_comp_lens), r2_small),
+                              ("4096", (big_comp, big_comp_lens), r2_big)):
+        for r in range(0, c.shape[0], 512):  # slices of whole groups of 32: plain's memory
+            want = snappy_decode_r2.decode_plain(c[r:r + 512], n[r:r + 512], with_steps=True)
+            for name, a, b in zip(("out", "out_lens", "ok", "steps"), got, want):
+                require(torch.equal(a[r:r + 512], b),
+                        f"the r2 kernel's {what} chunks: {name} equal plain")
+            r2_err = max(r2_err, int((got[0][r:r + 512].int() - want[0].int()).abs().max()))
+    del want
     r2_steps = r2_small[3].view(-1, 32)[:, 0].tolist()
     print(f"r2 decode: {N_CHUNKS} chunks, then {big_comp.shape[0]} tiled, in {t_r2:.3f} s "
           f"(host clock, first calls); launches {r2_launches}, {r2_rows} of {n_r2} "
-          f"chunks through the r2 kernel; every byte == the corpus and kernel #1's; "
+          f"chunks through the r2 kernel; every byte == the corpus and kernel #1's, all "
+          f"four outputs == plain; "
           f"steps of the {len(r2_steps)} groups {r2_steps}")
 
     print("== framed path (x-snappy-framed stream of the corpus)", flush=True)
@@ -3405,6 +3698,13 @@ def main() -> None:
     print(f"snappy r2 decode, {big_comp.shape[0]} chunks: kernel {r2_big_ms:.4f} ms "
           f"({gbps(decoded_bytes, r2_big_ms):.3f} GB/s decoded), bound "
           f"{dec_bound(comp_big_bytes, big_comp.shape[0]):.5f} ms")
+    r2_chunk_steps = snappy_decode_r2.chunk_steps(snappy_decode.token_table(comp, comp_lens),
+                                                  comp_lens)
+    r2_windows = int(r2_chunk_steps.max())  # the longest group's windows: its longest chunk's
+    r2_one = int(r2_chunk_steps.argmax())
+    print(f"snappy r2 decode: {r2_ms * 1e6 / r2_windows:.1f} ns a window of the longest group "
+          f"({r2_windows} windows, chunk {r2_one}) at {N_CHUNKS} chunks, "
+          f"{r2_big_ms * 1e6 / r2_windows:.1f} at {big_comp.shape[0]}")
     print(f"xxh64, {N_CHUNKS} chunks: kernel {xxh_ms:.4f} ms "
           f"({gbps(raw256, xxh_ms):.3f} GB/s), plain {xxh_plain_ms:.4f} ms "
           f"({gbps(raw256, xxh_plain_ms):.3f} GB/s)")
@@ -3494,6 +3794,13 @@ def main() -> None:
           f"accumulator chain with the card otherwise idle) {x32_alone[0]:.4f} ms, "
           f"{x32_alone[0] * 1e6 / (int(lzb_out_lens[0]) // 16):.2f} ns a round; {N_CHUNKS} "
           f"chunks {x32_alone[1]:.4f} ms; {big_raw.shape[0]} chunks {x32_alone[2]:.4f} ms")
+    # the r2 decode's longest chunk alone (profiler device time), after the
+    # trace for the same reason
+    r2_alone = profiling.kernel_ms(
+        lambda: snappy_decode_r2.decode(comp[r2_one:r2_one + 1], comp_lens[r2_one:r2_one + 1]),
+        "snappy_decode_r2", 5, str(_build.BUILD_DIR.parent / "profile" / "r2"))
+    print(f"snappy r2 decode: chunk {r2_one} alone (profiler device time) {r2_alone:.4f} ms, "
+          f"{r2_alone * 1e6 / r2_windows:.1f} ns a window")
     z_entries = zstd_kernel_times(zk, zp)
     ld_entries = lzo_deflate_times(dev, lk, lp, dk, dp)
     zc_entries = zstd_encode_times(zek, zc)
@@ -3511,6 +3818,8 @@ def main() -> None:
         {"name": "snappy_decode_r2", "route": "cuda",
          "source": "aircompressor_tpu_torch/csrc/snappy_decode_r2.cu",
          "replaces": "aircompressor_tpu/ops/snappy_pallas8.py:60",
+         "redesigned": "PR 14", "longest_chain_steps": r2_windows,
+         "chain_alone_ms": r2_alone,
          "launches": r2_launches, "max_abs_err": r2_err,
          "ms": r2_ms, "plain_ms": r2_plain_ms,
          "bound_ms": dec_bound(int(comp_lens.sum()), N_CHUNKS), "bound_by": "bytes",

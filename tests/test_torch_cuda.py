@@ -36,9 +36,10 @@ from chip_smoke import (
     XXH_SEEDS,
     backward_cap_case, deflate_cases, deflate_malformed_cases, deflate_slot_cases,
     deflate_window_cases, dfast_cases, dfast_collision_case, dfast_in_round_case,
-    emit_edge_rows, encode_round_cases, full_cases, generated_corpus, huffman_lane_batch,
+    emit_edge_rows, encode_round_cases, fse_section_cases, fse_short_match_chunk, full_cases,
+    generated_corpus, huffman_lane_batch,
     huffman_lane_cases, lz4_full_cases, lz4_length_edges_case, lz4_malformed_cases,
-    lzo_cases, one_sequence_case, snappy_window_cases,
+    lzo_cases, one_sequence_case, r2_window_cases, snappy_window_cases, tile_sections,
     zstd_cases, zstd_full_cases, zstd_malformed_cases)
 
 pytestmark = pytest.mark.cuda
@@ -288,6 +289,38 @@ def test_zstd_fse_kernel_equals_plain(device):
         assert torch.equal(g, w)
 
 
+def test_zstd_fse_kernel_on_the_hand_built_sections(device):
+    """The hand-built sections, three copies of each
+    frame: tables at logs 9/8/9, predefined and RLE tables, one sequence,
+    an OF code above 23, a repeat offset of 0, reads below the start and
+    past the input, three sections a frame, a frame without sections."""
+    _, a = fse_section_cases()
+    t = tile_sections(a, 3)
+    args = tuple(torch.from_numpy(t[k]).to(device) for k in ("src", "params", "tabs", "frames"))
+    args += (t["seq_slots"],)
+    got = zstd_decode.fse_sequences(*args)
+    for g, w in zip(got, zstd_decode.fse_sequences_plain(*args)):
+        assert torch.equal(g, w)
+
+
+def test_zstd_fse_kernel_on_a_long_section(device):
+    """A section of short matches over many ring slices (a 16 KB cut of the
+    short-match chunk), with the libzstd fixture's multi-block frames; the
+    frames decode to their originals."""
+    fixture = libzstd_frames()
+    raw = fse_short_match_chunk(16384)
+    frames = [host_zstd_enc.compress_bytes(raw, 3)] + [f["frame"] for f in fixture]
+    pk = zstd_decode.pack(device_prep.plan_batch(frames, 65536), device)
+    args = (pk.src, pk.s_params, pk.s_tabs, pk.s_frames, pk.seq_slots)
+    got = zstd_decode.fse_sequences(*args)
+    for g, w in zip(got, zstd_decode.fse_sequences_plain(*args)):
+        assert torch.equal(g, w)
+    res = zstd_decode.decode_plan(pk)
+    assert res["ok"].all()
+    for i, want in enumerate([raw] + [f["original"] for f in fixture]):
+        assert res["out"][i, :len(want)].cpu().numpy().tobytes() == want
+
+
 def test_zstd_execute_kernel_equals_plain(device):
     raws, pk = _zstd_batch(device)
     lit, _ = zstd_decode.huffman_decode_plain(pk.src, pk.h_params, pk.h_perm, pk.lit_size)
@@ -499,6 +532,27 @@ def test_snappy_r2_kernel_counts_each_chunk(device, synthetic):
     got = [int(snappy_decode_r2.decode(comp[i:i + 1], lens[i:i + 1], with_steps=True)[3][0])
            for i in range(comp.shape[0])]
     assert got == want.tolist()
+
+
+@pytest.mark.parametrize("rows", [257, snappy_decode_r2.SMALL_BATCH + 1])
+@pytest.mark.parametrize("out_cap", [65536, 4096, 4093])
+def test_snappy_r2_kernel_window_cases(device, synthetic, rows, out_cap):
+    """Both windows of the r2 kernel (32 KB at 257 rows, 4 KB above
+    SMALL_BATCH) on rows of an odd width: the 45 rows and the hand-built
+    window cases (copies at each reach - 1, reach and reach + 1, dist
+    65,535, dist-1 and dist-3 runs, literals across ring slices), with
+    steps; bytes, lengths and ok also equal kernel #1's."""
+    comp, lens = _r2_batch(synthetic, "cpu")
+    blobs = [comp[i, :int(lens[i])].numpy().tobytes() for i in range(comp.shape[0])]
+    blobs += [b for _, b in r2_window_cases()]
+    batch = (blobs * (rows // len(blobs) + 1))[:rows]
+    comp, lens = to_device_batch(*_pack(batch, max(map(len, batch)) | 1), device)
+    got = snappy_decode_r2.decode(comp, lens, out_cap=out_cap, with_steps=True)
+    want = snappy_decode_r2.decode_plain(comp, lens, out_cap=out_cap, with_steps=True)
+    for name, g, w in zip(("out", "out_lens", "ok", "steps"), got, want):
+        assert torch.equal(g, w), name
+    for g, w in zip(got, snappy_decode.decode(comp, lens, out_cap=out_cap)):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("codec", ["snappy", "lz4"])
