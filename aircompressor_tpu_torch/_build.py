@@ -49,6 +49,7 @@ _SIGNATURES = {
     "acx_lz4_decode": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P],
     "acx_lz4_encode": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P],
     "acx_xxh32": [_P, _P, _I, _I, _U32, _P, _P],
+    "acx_crc32c": [_P, _P, _I, _I, _P, _P],
     "acx_zstd_huffman": [_P, _L, _P, _P, _I, _P, _P, _P],
     "acx_zstd_fse": [_P, _L, _P, _P, _P, _I, _P, _P, _P, _P],
     "acx_zstd_fse_blocks_per_sm": [],

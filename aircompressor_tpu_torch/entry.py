@@ -1,5 +1,7 @@
 """Entry of the port's main path: batched Snappy decode, then xxh64 of every
-decoded chunk, on one device. Counterpart of ``__graft_entry__.entry``."""
+decoded chunk, on one device (``entry``), and the same step data-parallel
+over n devices (``dryrun_multichip``). Counterparts of
+``__graft_entry__.entry`` and ``__graft_entry__.dryrun_multichip``."""
 
 from __future__ import annotations
 
@@ -9,7 +11,7 @@ import numpy as np
 import torch
 
 from .host import snappy as host_snappy
-from .ops import snappy_decode, xxhash
+from .ops import pipeline, snappy_decode, xxhash
 from .ops.batch import to_device_batch
 
 
@@ -43,3 +45,33 @@ def entry(device="cuda"):
     buf, lens, chunk = _sample_batch(8)
     return (functools.partial(decode_and_hash, out_cap=chunk),
             to_device_batch(buf, lens, device))
+
+
+def dryrun_multichip(n_devices: int, device="cuda") -> dict:
+    """Decode and hash 4 sample chunks a device over a mesh of the first
+    ``n_devices`` CUDA devices (raises if there are fewer), or of
+    ``n_devices`` CPU slots for ``device="cpu"``, with the byte total summed
+    over the mesh. Raises unless every chunk decodes and the total is 4096
+    bytes a chunk; returns the gathered results of ``decode_and_hash`` with
+    the total under "bytes"."""
+    if torch.device(device).type == "cpu":
+        devices = [torch.device("cpu")] * n_devices
+    else:
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if count < n_devices:
+            raise RuntimeError(f"{n_devices} CUDA devices asked for, {count} present")
+        devices = [torch.device("cuda", i) for i in range(n_devices)]
+    mesh = pipeline.make_mesh(devices)
+    n_chunks = 4 * n_devices
+    buf, lens, chunk = _sample_batch(n_chunks)
+
+    def step(comp, comp_lens):
+        out = decode_and_hash(comp, comp_lens, out_cap=chunk)
+        return out, out["out_lens"].to(torch.int64).sum()
+
+    out, total = pipeline.sharded(mesh, step)(*to_device_batch(buf, lens, devices[0]))
+    if not bool(out["ok"].all()):
+        raise RuntimeError("sharded decode failed")
+    if int(total) != n_chunks * chunk:
+        raise RuntimeError(f"decoded {int(total)} bytes, want {n_chunks * chunk}")
+    return {**out, "bytes": total}

@@ -1,12 +1,19 @@
-"""Batched CRC32-C on a torch device, and the Snappy framing mask.
+"""Batched CRC32-C on a torch device: the CUDA kernel and its plain PyTorch
+version, and the Snappy framing mask.
 
-Counterpart of ``aircompressor_tpu.ops.checksum_jax``, which is XLA there,
-not a Pallas kernel; so these are plain tensor ops here, on the CPU and on
-the card alike. Same GF(2)-linear formulation as the host copy
-(``host.crc32c``): every byte's table term T[b_i] is advanced by
-A^(n-1-i) in log2(L) rounds of masked 4x256-table lookups, then the terms
-are XOR-reduced. Values are u32 bit patterns held in int32 tensors: XOR
-and ``(c >> k) & 0xFF`` give the same bytes under an arithmetic shift.
+``crc32c(data, lengths)`` checksums row i of a (B, L) uint8 batch over its
+first ``lengths[i]`` bytes, clamped to [0, L] (unmasked, zlib-style initial
+value and final XOR) and returns (B,) int64 in [0, 2^32). It launches
+``csrc/crc32c.cu`` for a CUDA tensor and uses ``crc32c_plain`` only for a
+tensor on the CPU. The JAX package's ``checksum_jax.crc32c`` is XLA, not a
+Pallas kernel; the kernel replaces it (one warp a row, 32 segments combined
+over GF(2); ``tests/test_torch_crc32c.py`` models the split and the combine).
+
+``crc32c_plain`` is the same GF(2)-linear formulation as the host copy
+(``host.crc32c``): every byte's table term T[b_i] is advanced by A^(n-1-i)
+in log2(L) rounds of masked 4x256-table lookups, then the terms are
+XOR-reduced. Values are u32 bit patterns held in int32 tensors: XOR and
+``(c >> k) & 0xFF`` give the same bytes under an arithmetic shift.
 """
 
 from __future__ import annotations
@@ -15,7 +22,12 @@ import functools
 
 import torch
 
+from .. import _build
 from ..host import crc32c as _host
+
+# Kernel launches, for runs that must show the kernel was used. Only a
+# launch of the CUDA kernel adds to it.
+launches = 0
 
 M32 = 0xFFFFFFFF
 
@@ -34,20 +46,43 @@ def _apply_map(tabs: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
             ^ tabs[2][(c >> 16) & 0xFF] ^ tabs[3][(c >> 24) & 0xFF])
 
 
-def crc32c(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """CRC32-C (unmasked, zlib-style init and final xor) of each row's first
-    ``lengths[i]`` bytes, lengths clamped to [0, L]: (B,) int64 in [0, 2^32).
-
-    data: (B, L) uint8; lengths: (B,) integers on the same device.
-    """
+def _check(data: torch.Tensor, lengths: torch.Tensor):
     if data.dtype != torch.uint8 or data.dim() != 2:
         raise TypeError(f"data must be a 2-D uint8 tensor, got {data.dtype} "
                         f"{tuple(data.shape)}")
     if lengths.shape != (data.shape[0],) or lengths.device != data.device:
         raise ValueError("lengths must be (B,) on the device of data")
+    return data.contiguous(), lengths.to(torch.int32).contiguous()
+
+
+def crc32c(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """CRC32-C of each row's prefix; see the module doc."""
+    global launches
+    data, lengths = _check(data, lengths)
+    if data.device.type == "cpu":
+        return crc32c_plain(data, lengths)
+    if data.device.type != "cuda":
+        raise ValueError(f"no crc32c for device {data.device}")
+    lib = _build.load()
+    B, L = data.shape
+    out = torch.empty(B, dtype=torch.int64, device=data.device)
+    if B:
+        with torch.cuda.device(data.device):
+            err = lib.acx_crc32c(data.data_ptr(), lengths.data_ptr(), B, L,
+                                 out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"crc32c kernel launch failed: CUDA error {err}")
+        launches += 1
+    return out
+
+
+def crc32c_plain(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch CRC32-C, the function of
+    ``aircompressor_tpu.ops.checksum_jax.crc32c``; see the module doc."""
+    data, lengths = _check(data, lengths)
     B, L = data.shape
     byte, power = _tables(data.device)
-    lengths = lengths.to(torch.int32).clamp(0, L)
+    lengths = lengths.clamp(0, L)
     exps = lengths[:, None] - 1 - torch.arange(L, dtype=torch.int32,
                                                device=data.device)[None, :]
     c = torch.where(exps >= 0, byte[data.int()], 0)

@@ -40,7 +40,17 @@ read just after:
   xxh64 kernel), every frame decoded back through the zstd decode kernels
   and its size held to the host encoder's; the same batch stage by stage
   on the host clock; then the corpus tiled 16 times through the DFAST
-  kernel and its packed plans tiled through the emission kernel.
+  kernel and its packed plans tiled through the emission kernel;
+- mesh: the corpus tiled 16 times through a mesh over every card (``cuda:0``)
+  (``pipeline.sharded_checksum_step``, ``sharded_compress`` then
+  ``sharded_decompress``: the xxh64, xxh32, CRC32-C, Snappy encode and
+  decode kernels), every output, length, flag and total equal to the
+  unsharded calls; ``dryrun_multichip`` over every card; a world of one
+  NCCL rank in this process through ``multihost``'s distributed steps; and
+  a world of two gloo ranks on the one card, as subprocesses with a
+  ``file://`` store, half of the tiled chunks each (NCCL refuses two ranks
+  on one card), their global totals and local results held to the mesh's
+  and every local row decoded on the host.
 
 The three zstd kernels are first held against their plain versions on a
 batch of frames from the host encoder, the libzstd fixture (multi-block
@@ -91,7 +101,9 @@ out_cap 65536 and 4093, 257 and 793 rows of an odd width and each row
 alone; the step counts of the Snappy and LZ4 decode, the LZO and deflate
 decode and the Snappy and LZ4 encode kernels, the encoders' also on their
 hand-built round chunks (tiled to 3 and 793 rows), on 64 KB rows and on
-the corpus. It prints the share of the corpus's Snappy, deflate, LZO and
+the corpus; the CRC32-C kernel against its plain version and the host on a
+length grid (0-35, 63-65, 4095-4097 and 65,536 bytes) at widths 65,536,
+65,531 and 4,096 at a base one byte past alignment. It prints the share of the corpus's Snappy, deflate, LZO and
 LZ4 copies and zstd matches within each window's reach, the DFAST, deflate,
 LZO, LZ4 decode and encode kernels' ns a step of the corpus's longest
 chain, the xxh32 kernel's time on one 64 KB stream alone, the zstd
@@ -118,6 +130,7 @@ import hashlib
 import json
 import time
 import zlib
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -3098,6 +3111,277 @@ def r2_windows_against_plain(dev, blobs: list[bytes]) -> int:
     return err
 
 
+CRC_GRID = list(range(36)) + [63, 64, 65, 4095, 4096, 4097, CHUNK]
+RANK_TIMEOUT = 300  # seconds for each gloo rank of the two-rank run
+RANK_CODE = "import sys, chip_smoke; chip_smoke.rank_worker(*sys.argv[1:])"
+
+
+def crc32c_against_plain(dev) -> int:
+    """Hold the CRC32-C kernel to ``crc32c_plain`` and the host's
+    ``crc32c_raw`` on the length grid: rows of width CHUNK (16-byte
+    aligned: the kernel's aligned variant), of CHUNK - 5 and at a base one
+    byte past 16-byte alignment (its byte variant), and lengths past the
+    row or below 0 (clamped). Returns the max_abs_err."""
+    from aircompressor_tpu_torch.host.crc32c import crc32c_raw
+    from aircompressor_tpu_torch.ops import checksum
+
+    rng = np.random.default_rng(32)
+    err = 0
+    for width, shift in ((CHUNK, 0), (CHUNK - 5, 0), (4096, 1)):
+        rows = len(CRC_GRID) + 2
+        buf = torch.from_numpy(rng.integers(0, 256, rows * width + shift, dtype=np.uint8)).to(dev)
+        data = buf[shift:].view(rows, width)
+        require(data.is_contiguous() and (data.data_ptr() % 16 == 0) == (shift == 0),
+                "the batch's alignment")
+        lens = torch.tensor([min(n, width) for n in CRC_GRID] + [-7, width + 9],
+                            dtype=torch.int32, device=dev)
+        k = checksum.crc32c(data, lens).tolist()
+        p = checksum.crc32c_plain(data, lens).tolist()
+        host = data.cpu().numpy()
+        h = [crc32c_raw(host[i, :min(max(n, 0), width)]) for i, n in enumerate(lens.tolist())]
+        err = max([err] + [abs(a - b) for a, b in zip(k, p)])
+        require(k == p == h, f"crc32c kernel == plain == host at L={width}, base +{shift}")
+    print(f"crc32c: {3 * (len(CRC_GRID) + 2)} rows (lengths 0-35, 63-65, 4095-4097, "
+          f"{CHUNK}, -7 and past the row; widths {CHUNK}, {CHUNK - 5} and 4096 at a base "
+          f"+1), kernel == plain == host, max_abs_err {err}")
+    return err
+
+
+def _counts() -> dict:
+    """The launch counts of the kernels that the mesh phases run."""
+    from aircompressor_tpu_torch.ops import checksum, snappy_decode, snappy_encode, xxhash
+
+    return {"snappy_encode": snappy_encode.launches, "snappy_decode": snappy_decode.launches,
+            "xxh64": xxhash.launches, "xxh32": xxhash.xxh32_launches,
+            "crc32c": checksum.launches}
+
+
+def _zero_counts() -> None:
+    from aircompressor_tpu_torch.ops import checksum, snappy_decode, snappy_encode, xxhash
+
+    snappy_encode.launches = snappy_decode.launches = xxhash.launches = 0
+    xxhash.xxh32_launches = checksum.launches = 0
+
+
+def _digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+MESH_KEYS = ("xxh64", "xxh32", "crc32c")
+
+
+def mesh_path(dev, raw: torch.Tensor, raw_lens: torch.Tensor) -> dict:
+    """The one-process mesh over every card (``dev`` alone on a machine of
+    one): ``sharded_checksum_step``,
+    ``sharded_compress`` then ``sharded_decompress`` on the tiled corpus,
+    every output, length, flag and total equal to the unsharded calls;
+    then ``dryrun_multichip`` over every card. Returns the mesh's results,
+    launches and times."""
+    from aircompressor_tpu_torch.entry import _sample_batch, decode_and_hash, dryrun_multichip
+    from aircompressor_tpu_torch.ops import checksum, pipeline, snappy_decode, snappy_encode
+    from aircompressor_tpu_torch.ops.batch import to_device_batch
+
+    print("== one-process mesh over every card (the tiled corpus)", flush=True)
+    mesh = pipeline.make_mesh()
+    _zero_counts()
+    t0 = time.perf_counter()
+    ck = pipeline.sharded_checksum_step(mesh)(raw, raw_lens)
+    comp, comp_lens, c_total = pipeline.sharded_compress(mesh)(raw, raw_lens)
+    out, out_lens, ok, d_total = pipeline.sharded_decompress(mesh)(comp, comp_lens)
+    torch.cuda.synchronize()
+    t_mesh = time.perf_counter() - t0
+    counts = _counts()
+    require(all(n > 0 for n in counts.values()), f"the mesh launched every kernel: {counts}")
+
+    want = pipeline.checksum_step(raw, raw_lens)
+    for key in MESH_KEYS:
+        require(torch.equal(ck[key], want[key]), f"mesh {key} equals the unsharded step's")
+    u_comp, u_lens, u_ok = snappy_encode.encode(raw, raw_lens)
+    u_out, u_out_lens, u_dok = snappy_decode.decode(u_comp, u_lens)
+    require(bool(u_ok.all()) and torch.equal(comp, u_comp) and torch.equal(comp_lens, u_lens),
+            "mesh compress equals the unsharded encode")
+    require(torch.equal(out, u_out) and torch.equal(out_lens, u_out_lens)
+            and torch.equal(ok, u_dok) and bool(ok.all()),
+            "mesh decompress equals the unsharded decode")
+    require(torch.equal(out_lens, raw_lens) and torch.equal(out, raw),
+            "mesh decompress gives back the tiled corpus")
+    n_bytes = int(raw_lens.to(torch.int64).sum())
+    require(int(ck["bytes"]) == int(d_total) == n_bytes and
+            int(c_total) == int(comp_lens.to(torch.int64).sum()), "mesh totals")
+    plain = checksum.mask_crc(checksum.crc32c_plain(raw[:N_CHUNKS], raw_lens[:N_CHUNKS]))
+    require(torch.equal(ck["crc32c"], plain.repeat(SUSTAIN)), "mesh CRC32-C equals plain")
+    print(f"mesh of {mesh.size} ({', '.join(map(str, mesh.devices))}): {raw.shape[0]} chunks, {n_bytes} B, checksum + "
+          f"compress ({int(c_total)} B) + decompress in {t_mesh:.3f} s (host clock, first "
+          f"calls); == unsharded on every output; launches {counts}")
+
+    print("== dryrun_multichip", flush=True)
+    n_cards = torch.cuda.device_count()
+    _zero_counts()
+    dry = dryrun_multichip(n_cards)
+    dry_counts = _counts()
+    buf, lens, chunk = _sample_batch(4 * n_cards)
+    single = decode_and_hash(*to_device_batch(buf, lens, dev), out_cap=chunk)
+    for key in single:
+        require(torch.equal(dry[key], single[key]), f"dryrun {key} equals the unsharded step")
+    require(dry_counts["snappy_decode"] > 0 and dry_counts["xxh64"] > 0,
+            f"the dryrun launched kernels #1 and #2: {dry_counts}")
+    print(f"dryrun_multichip({n_cards}): {4 * n_cards} chunks, {int(dry['bytes'])} B, "
+          f"== unsharded decode_and_hash; launches {dry_counts}")
+    return {"ck": ck, "comp": comp, "comp_lens": comp_lens, "c_total": int(c_total),
+            "out": out, "out_lens": out_lens, "d_total": int(d_total), "bytes": n_bytes,
+            "counts": counts, "mesh": mesh}
+
+
+def nccl_rank(dev, raw: torch.Tensor, raw_lens: torch.Tensor, mp: dict) -> None:
+    """A world of one NCCL rank in this process: the distributed steps on
+    the tiled corpus, equal to the mesh's, and the scaling report of one
+    card (not a scaling figure)."""
+    import tempfile
+
+    from aircompressor_tpu_torch import _build
+    from aircompressor_tpu_torch.ops import multihost
+
+    print("== one NCCL rank in this process", flush=True)
+    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
+        multihost.initialize(f"file://{tmp}/rendezvous", 1, 0)
+        report, counts = _nccl_steps(dev, raw, raw_lens, mp)
+    print(f"one NCCL rank: == the mesh on every output and total; launches {counts}")
+    print("scaling_report on ONE card, a mesh of one device against the unsharded decode "
+          "(the wrapper's overhead, not a scaling figure): " + json.dumps(report))
+
+
+def _nccl_steps(dev, raw, raw_lens, mp: dict):
+    import torch.distributed as dist
+
+    from aircompressor_tpu_torch.ops import multihost, pipeline, snappy_decode
+
+    try:
+        multihost.initialize("file:///nonexistent/store", 1, 0)  # a no-op
+        require(dist.get_backend() == "nccl" and dist.get_world_size() == 1, "one NCCL rank")
+        mesh = multihost.global_mesh()
+        require(mesh.devices == (dev,), f"the rank's mesh is {dev}: {mesh}")
+        data, lens = multihost.make_global_batch(mesh, raw.cpu().numpy(), raw_lens.cpu().numpy())
+        _zero_counts()
+        ck = multihost.distributed_checksum(mesh)(data, lens)
+        comp, comp_lens, c_total = multihost.distributed_compress(mesh)(data, lens)
+        out, out_lens, ok, d_total = multihost.distributed_decompress(mesh)(comp, comp_lens)
+        torch.cuda.synchronize()
+        counts = _counts()
+        for key in MESH_KEYS:
+            require(torch.equal(ck[key].local, mp["ck"][key]), f"NCCL rank {key} == the mesh's")
+        require(torch.equal(comp.local, mp["comp"]) and torch.equal(comp_lens.local, mp["comp_lens"])
+                and torch.equal(out.local, mp["out"]) and torch.equal(out_lens.local, mp["out_lens"])
+                and bool(ok.local.all()), "NCCL rank outputs == the mesh's")
+        require(int(ck["bytes"]) == int(d_total) == mp["bytes"] and int(c_total) == mp["c_total"]
+                and ck["bytes"].device == dev, "NCCL rank totals (reduced on the card)")
+        require(all(n > 0 for n in counts.values()), f"the rank launched every kernel: {counts}")
+        decode = pipeline.sharded_decompress(mesh)
+        t_one = time_ms(lambda: snappy_decode.decode(mp["comp"], mp["comp_lens"]), 3)
+        t_mesh = time_ms(lambda: decode(mp["comp"], mp["comp_lens"]), 3)
+        report = multihost.scaling_report(mesh, t_one / 1e3, t_mesh / 1e3, mp["bytes"])
+    finally:
+        dist.destroy_process_group()
+    return report, counts
+
+
+def rank_worker(rank: str, world: str, store: str) -> None:
+    """One gloo rank of the two-rank run, on cuda:0: half of the tiled
+    corpus's chunks through the distributed steps; every local row decoded
+    on the host. Prints one JSON line of its totals and digests."""
+    import sys
+
+    for name in ("jax", "aircompressor_tpu"):
+        sys.modules[name] = None
+    import torch.distributed as dist
+
+    from aircompressor_tpu_torch.host import snappy as host_snappy
+    from aircompressor_tpu_torch.ops import multihost
+    from aircompressor_tpu_torch.ops.batch import _pack
+
+    rank, world = int(rank), int(world)
+    corpus = generated_corpus()
+    buf, lens = _pack(corpus * SUSTAIN, CHUNK)
+    per = buf.shape[0] // world
+    mine = slice(rank * per, (rank + 1) * per)
+    multihost.initialize(store, world, rank, device="cuda:0", backend="gloo")
+    try:
+        mesh = multihost.global_mesh()
+        data, lengths = multihost.make_global_batch(mesh, buf[mine], lens[mine])
+        _zero_counts()
+        ck = multihost.distributed_checksum(mesh)(data, lengths)
+        comp, comp_lens, c_total = multihost.distributed_compress(mesh)(data, lengths)
+        out, out_lens, ok, d_total = multihost.distributed_decompress(mesh)(comp, comp_lens)
+        counts = _counts()
+        rows, blens = multihost.local_rows(comp), multihost.local_rows(comp_lens)
+        raws = corpus * SUSTAIN
+        for i in range(per):
+            require(host_snappy.decompress(rows[i, :blens[i]].tobytes(), CHUNK)
+                    == raws[rank * per + i], f"rank {rank}: local row {i} decodes on the host")
+        require(bool(ok.local.all()) and np.array_equal(multihost.local_rows(out), buf[mine]),
+                f"rank {rank}: local rows of out equal its chunks")
+        result = {"rank": rank, "offset": data.offset, "rows": data.rows,
+                  "bytes": int(ck["bytes"]), "c_total": int(c_total), "d_total": int(d_total),
+                  "total_device": str(ck["bytes"].device), "counts": counts,
+                  "digests": {key: _digest(ck[key].local) for key in MESH_KEYS}
+                  | {"comp": _digest(comp.local), "comp_lens": _digest(comp_lens.local),
+                     "out": _digest(out.local), "out_lens": _digest(out_lens.local)}}
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps(result))
+
+
+def gloo_ranks(mp: dict) -> list[dict]:
+    """Two gloo ranks on the one card, as subprocesses with a file:// store,
+    each with half of the tiled corpus: their global totals equal the
+    mesh's, their local results the mesh's rows of their half."""
+    import subprocess
+    import sys
+    import tempfile
+
+    from aircompressor_tpu_torch import _build
+
+    print("== two gloo ranks on the one card (subprocesses)", flush=True)
+    here = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", RANK_CODE, str(r), "2", f"file://{tmp}/rendezvous"],
+            cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
+        outs = []
+        try:
+            for proc in procs:
+                outs.append(proc.communicate(timeout=RANK_TIMEOUT))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    t_ranks = time.perf_counter() - t0
+    for r, (proc, (out, err)) in enumerate(zip(procs, outs)):
+        require(proc.returncode == 0, f"gloo rank {r} exits 0:\n{err[-4000:]}")
+    reports = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+    per = mp["out"].shape[0] // 2
+    for r, rep in enumerate(reports):
+        rows = slice(r * per, (r + 1) * per)
+        want = {key: _digest(mp["ck"][key][rows]) for key in MESH_KEYS} | {
+            "comp": _digest(mp["comp"][rows]), "comp_lens": _digest(mp["comp_lens"][rows]),
+            "out": _digest(mp["out"][rows]), "out_lens": _digest(mp["out_lens"][rows])}
+        require(rep["rank"] == r and rep["offset"] == r * per and rep["rows"] == 2 * per,
+                f"gloo rank {r}'s rows")
+        require(rep["digests"] == want, f"gloo rank {r}'s local results == the mesh's rows")
+        require(all(n > 0 for n in rep["counts"].values()),
+                f"gloo rank {r} launched every kernel: {rep['counts']}")
+        require(rep["bytes"] == rep["d_total"] == mp["bytes"] and rep["c_total"] == mp["c_total"]
+                and rep["total_device"] == "cpu", f"gloo rank {r} holds the global totals")
+    print(f"two gloo ranks on cuda:0: {per} chunks each, global totals {mp['bytes']} B and "
+          f"{mp['c_total']} B compressed on both, local results == the mesh's rows, every "
+          f"local row decoded on the host; launches {[rep['counts'] for rep in reports]}; "
+          f"{t_ranks:.1f} s (host clock, both processes from their start)")
+    return reports
+
+
 def main() -> None:
     print("== device", flush=True)
     if not torch.cuda.is_available():
@@ -3337,6 +3621,7 @@ def main() -> None:
     print(f"xxh32: {2 * len(grid32)} streams, kernel == plain == scalar, "
           f"max_abs_err {xxh32_err}")
     xxh32_err = max(xxh32_err, xxh32_batches_against_plain(dev))
+    crc_err = crc32c_against_plain(dev)
 
     zk = zstd_kernels_against_plain(dev)
     lk = lzo_kernel_against_plain(dev)
@@ -3510,13 +3795,14 @@ def main() -> None:
             kinds.count(framed.PADDING_CHUNK) == 1 and
             kinds.index(framed.UNCOMPRESSED_CHUNK) == 5,
             "the stream holds one padding chunk and one stored chunk (block 4)")
-    snappy_decode.launches = 0
+    snappy_decode.launches = checksum.launches = 0
     t0 = time.perf_counter()
     got = snappy_framed_decompress_device(stream, device=dev)
     t_framed_first = time.perf_counter() - t0
-    framed_launches = snappy_decode.launches
+    framed_launches, crc_launches = snappy_decode.launches, checksum.launches
     require(got == data, "the framed stream decodes to the corpus")
     require(framed_launches > 0, "the framed decode launched the decode kernel")
+    require(crc_launches > 0, "the framed decode launched the CRC32-C kernel")
     pos = spans[1 + BAD_CRC_BLOCK][1] + 4  # +1: the padding chunk comes first
     bad = stream[:pos] + bytes([stream[pos] ^ 1]) + stream[pos + 1:]
     try:
@@ -3534,7 +3820,7 @@ def main() -> None:
     _pack(payloads, _round_up(max(map(len, payloads)), 16))
     t_walk = time.perf_counter() - t0
     print(f"framed: {len(stream)} B stream, {len(data)} B out, decode launches "
-          f"{framed_launches}; flipped CRC -> MalformedInputException at "
+          f"{framed_launches}, crc32c launches {crc_launches}; flipped CRC -> MalformedInputException at "
           f"{BAD_CRC_INDEX}; first call {t_framed_first:.3f} s, then "
           f"{t_framed:.4f} s a call (host clock, mean of 3; "
           f"{gbps(len(data), t_framed * 1e3):.3f} GB/s); of which frame walk "
@@ -3623,6 +3909,9 @@ def main() -> None:
     lp = lzo_path(dev, corpus)
     dp = deflate_path(dev, corpus)
     zc = zstd_compress_path(dev, corpus, zp["frames"])
+    mp = mesh_path(dev, big_raw, big_raw_lens)
+    nccl_rank(dev, big_raw, big_raw_lens, mp)
+    gloo_ranks(mp)
 
     print("== times (CUDA events)", flush=True)
     comp, comp_lens = to_device_batch(
@@ -3644,9 +3933,14 @@ def main() -> None:
         lambda: snappy_decode_r2.decode_plain(comp, comp_lens), 20, 3)
     r2_big_ms = time_ms(lambda: snappy_decode_r2.decode(big_comp, big_comp_lens), 5)
     xxh_big_ms = time_ms(lambda: xxhash.xxh64(big_out, big_out_lens), 10)
+    crc_big_ms, crc_big_plain_ms = paired_ms(
+        lambda: checksum.crc32c(big_out, big_out_lens),
+        lambda: checksum.crc32c_plain(big_out, big_out_lens), 10, 1)
     enc256_ms = time_ms(lambda: snappy_encode.encode(raw, raw_lens), 5)
     enc_big_ms = time_ms(lambda: snappy_encode.encode(big_raw, big_raw_lens), 3)
-    crc_ms = time_ms(lambda: checksum.crc32c(out256, lens256), 5)
+    crc_ms, crc_plain_ms = paired_ms(
+        lambda: checksum.crc32c(out256, lens256),
+        lambda: checksum.crc32c_plain(out256, lens256), 20, 2)
     lz_out256, lz_lens256 = lzb_out[:N_CHUNKS].contiguous(), lzb_out_lens[:N_CHUNKS]
     lzd_ms, lzd_plain_ms = paired_ms(
         lambda: lz4_decode.decode(lz_comp256, lz_comp_lens256),
@@ -3714,8 +4008,12 @@ def main() -> None:
           f"({gbps(decoded_bytes, xxh_big_ms):.3f} GB/s hashed)")
     print(f"decode + xxh64, {big_comp.shape[0]} chunks: "
           f"{gbps(decoded_bytes, dec_big_ms + xxh_big_ms):.3f} GB/s")
-    print(f"crc32c (plain tensor ops), {N_CHUNKS} chunks: {crc_ms:.4f} ms "
-          f"({gbps(raw256, crc_ms):.3f} GB/s)")
+    for b, ms, plain_ms, nbytes in ((N_CHUNKS, crc_ms, crc_plain_ms, raw256),
+                                    (big_comp.shape[0], crc_big_ms, crc_big_plain_ms,
+                                     decoded_bytes)):
+        print(f"crc32c, {b} chunks ({nbytes} B): kernel {ms:.4f} ms "
+              f"({gbps(nbytes, ms):.3f} GB/s), plain {plain_ms:.4f} ms, bound "
+              f"{xxh_bound(nbytes, b):.5f} ms")
     print(f"lz4 encode, {len(lz4_full)} chunks at width {CHUNK} ({lz4_full_bytes} B "
           f"in): kernel {lze_ms:.4f} ms, plain {lze_plain_ms:.4f} ms")
     for b, ms, nbytes, bnd in (
@@ -3883,9 +4181,20 @@ def main() -> None:
          "library_ms": None, "batch": f"{N_CHUNKS} chunks",
          "tiled_chunks": big_raw.shape[0], "tiled_ms": x32_big_ms,
          "tiled_bound_ms": xxh_bound(raw_big, big_raw.shape[0])},
+        {"name": "crc32c", "route": "cuda",
+         "source": "aircompressor_tpu_torch/csrc/crc32c.cu",
+         "replaces": "aircompressor_tpu/ops/checksum_jax.py:34",
+         "note": "the JAX package's crc32c is XLA, not a Pallas kernel",
+         "launches": crc_launches, "mesh_launches": mp["counts"]["crc32c"],
+         "max_abs_err": crc_err, "ms": crc_ms, "plain_ms": crc_plain_ms,
+         "bound_ms": xxh_bound(raw256, N_CHUNKS), "bound_by": "bytes",
+         "library_ms": None, "batch": f"{N_CHUNKS} chunks",
+         "tiled_chunks": big_comp.shape[0], "tiled_ms": crc_big_ms,
+         "tiled_plain_ms": crc_big_plain_ms,
+         "tiled_bound_ms": xxh_bound(decoded_bytes, big_comp.shape[0])},
     ]
     kernels += z_entries + ld_entries + zc_entries
-    require(len(kernels) == 14, f"14 kernels in the line, got {len(kernels)}")
+    require(len(kernels) == 15, f"15 kernels in the line, got {len(kernels)}")
     for e in kernels:  # the seeded checks hold the xxHash kernels too
         if e["name"] in seed_errs:
             e["max_abs_err"] = max(e["max_abs_err"], seed_errs[e["name"]])

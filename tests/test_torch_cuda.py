@@ -148,6 +148,115 @@ def test_crc32c_on_device_equals_host(device):
     assert got == [crc32c_raw(host[i, :n]) for i, n in enumerate(lens)]
 
 
+@pytest.mark.parametrize("width, shift", [(4096, 0), (4091, 0), (4096, 1)])
+def test_crc32c_kernel_equals_plain_and_host(device, width, shift):
+    """The kernel's aligned variant (16-byte rows), and its byte variant
+    (an odd width, a base one byte past alignment), against the plain
+    version and the host on the length grid, clamped lengths included."""
+    grid = list(range(36)) + [63, 64, 65, 4095, 4096, 4097, -7]
+    rows = len(grid)
+    rng = np.random.default_rng(width + shift)
+    buf = torch.from_numpy(rng.integers(0, 256, rows * width + shift, dtype=np.uint8))
+    data = buf.to(device)[shift:].view(rows, width)
+    lens = torch.tensor(grid, dtype=torch.int32, device=device)
+    before = checksum.launches
+    got = checksum.crc32c(data, lens)
+    assert checksum.launches == before + 1 and got.device.type == "cuda"
+    assert torch.equal(got, checksum.crc32c_plain(data, lens))
+    host = data.cpu().numpy()
+    assert got.tolist() == [crc32c_raw(host[i, :min(max(n, 0), width)])
+                            for i, n in enumerate(grid)]
+
+
+def test_mesh_over_every_card_equals_unsharded(device):
+    """The sharded steps on a mesh of every card (8 rows a card) equal the
+    unsharded calls on one, and dryrun_multichip runs over every card."""
+    from aircompressor_tpu_torch.entry import dryrun_multichip
+    from aircompressor_tpu_torch.ops import pipeline
+
+    mesh = pipeline.make_mesh()
+    assert mesh.size == torch.cuda.device_count()
+    raws = [_selfcheck_payload(i)[-20000:] for i in range(8 * mesh.size)]
+    data, lens = to_device_batch(*_pack(raws, 20480), device)
+    ck = pipeline.sharded_checksum_step(mesh)(data, lens)
+    want = pipeline.checksum_step(data, lens)
+    for key in want:
+        assert torch.equal(ck[key], want[key]), key
+    comp, comp_lens, total = pipeline.sharded_compress(mesh)(data, lens)
+    u = snappy_encode.encode(data, lens)
+    assert torch.equal(comp, u[0]) and torch.equal(comp_lens, u[1])
+    assert int(total) == int(comp_lens.sum())
+    out, out_lens, ok, total = pipeline.sharded_decompress(mesh)(comp, comp_lens)
+    for a, b in zip((out, out_lens, ok), snappy_decode.decode(comp, comp_lens)):
+        assert torch.equal(a, b)
+    assert bool(ok.all()) and int(total) == sum(map(len, raws))
+    blobs = pipeline.assemble_frames(comp, comp_lens)
+    assert [host_snappy.decompress(b, 65536) for b in blobs] == raws
+    assert int(dryrun_multichip(mesh.size)["bytes"]) == 4 * mesh.size * 4096
+
+
+NCCL_RANK = r"""
+import json, sys
+for name in ("jax", "aircompressor_tpu"):
+    sys.modules[name] = None
+import torch.distributed as dist
+from aircompressor_tpu_torch.host import snappy as host_snappy
+from aircompressor_tpu_torch.ops import multihost
+from aircompressor_tpu_torch.ops.batch import _pack, _selfcheck_payload
+
+rank, world, store = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+raws = [_selfcheck_payload(100 * rank + i)[-20000:] for i in range(8)]
+multihost.initialize(store, world, rank)
+mesh = multihost.global_mesh()
+data, lens = multihost.make_global_batch(mesh, *_pack(raws, 20480))
+comp, comp_lens, c_total = multihost.distributed_compress(mesh)(data, lens)
+out, out_lens, ok, d_total = multihost.distributed_decompress(mesh)(comp, comp_lens)
+ck = multihost.distributed_checksum(mesh)(data, lens)
+rows, blens = multihost.local_rows(comp), multihost.local_rows(comp_lens)
+assert [host_snappy.decompress(rows[i, :blens[i]].tobytes(), 65536) for i in range(8)] == raws
+assert bool(ok.local.all())
+print(json.dumps({"backend": dist.get_backend(), "device": str(data.local.device),
+                  "bytes": int(ck["bytes"]), "d_total": int(d_total),
+                  "c_total": int(c_total), "mine": sum(map(len, raws)),
+                  "comp_mine": int(comp_lens.local.sum())}))
+dist.destroy_process_group()
+"""
+
+
+def test_nccl_ranks_one_a_card(device, tmp_path):
+    """One NCCL rank a card, as subprocesses: every rank holds the global
+    totals, and its local rows decode on the host."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices (NCCL refuses two ranks on one)")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = [subprocess.Popen([sys.executable, "-c", NCCL_RANK, str(r), str(n),
+                               f"file://{tmp_path / 'store'}"], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, cwd=root, env=env)
+             for r in range(n)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), [e[-3000:] for _, e in outs]
+    reps = [json.loads(o.strip().splitlines()[-1]) for o, _ in outs]
+    assert [r["device"] for r in reps] == [f"cuda:{i}" for i in range(n)]
+    everything = sum(r["mine"] for r in reps)
+    for r in reps:
+        assert r["backend"] == "nccl"
+        assert r["bytes"] == r["d_total"] == everything
+        assert r["c_total"] == sum(q["comp_mine"] for q in reps)
+
+
 def test_framed_decompress_on_device(device, synthetic):
     noise = np.random.default_rng(9).integers(0, 256, 65536, dtype=np.uint8)
     data = b"".join(c for _, c in synthetic) + noise.tobytes()
