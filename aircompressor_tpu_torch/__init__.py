@@ -21,13 +21,22 @@ user surface ``ops.batch`` (``SnappyBatchCodec`` and ``Lz4BatchCodec`` with
 ``snappy_framed_decompress_device``); the main-path entry ``entry.entry``.
 Entry points run on the card unless given ``device="cpu"``. ``data`` holds
 the fixtures of the checks.
+
+The JAX package's user surface, on the host as it is there: the block API
+(``api``), the codec families with their ``create()`` factories
+(``snappy``, ``lz4``, ``lzo``, ``zstd``, ``xxhash``, ``crc``), the native
+C++ tier (``native``: the block codecs and hashes of ``host/native``, and
+the system libzstd), and the frame and stream formats (``snappy.framed``,
+``lz4.frame``, ``lz4.frame_codec``, ``lz4.streams``, ``lzo.lzop``,
+``zstd.frame_dec``, ``zstd.streams``). No ``create()`` picks the card.
 """
 
-__all__ = ["data", "entry", "errors", "host", "ops"]
+__all__ = ["api", "crc", "data", "entry", "errors", "host", "lz4", "lzo", "native",
+           "ops", "snappy", "xxhash", "zstd"]
 
 
 def __getattr__(name):
-    """Lazy submodule access: aircompressor_tpu_torch.ops / entry."""
+    """Lazy submodule access: aircompressor_tpu_torch.ops / entry / lz4 / ..."""
     import importlib
 
     if name in __all__:

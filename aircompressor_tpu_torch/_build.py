@@ -10,11 +10,12 @@ the library already built. Nothing here
 includes PyTorch's headers: pointers and the stream pass as integers, which
 keeps a build to seconds. Nothing is built when the module is imported.
 
-``host/**/*.cc`` (the deflate planner) compile the same way with g++ into
-one library under ``build/host/``, keyed by a hash of its sources and flags.
-It runs on the CPU, so it is built wherever it is first used, the CPU tests
-included. ``-O3`` without ``-march``, so the library does not depend on the
-CPU it was built on.
+``host/**/*.cc`` (the deflate planner and the native tier's block codecs,
+hashes and CRC, ``host/native``) compile the same way with g++ into one
+library under ``build/host/``, keyed by a hash of its sources, the headers
+beside them and the flags. It runs on the CPU, so it is built wherever it
+is first used, the CPU tests included. ``-O3`` without ``-march``, so the
+library does not depend on the CPU it was built on.
 """
 
 from __future__ import annotations
@@ -59,9 +60,20 @@ _SIGNATURES = {
     "acx_zstd_dfast": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "acx_zstd_emit": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
 }
-# C++ host entry -> argument types; each returns nothing.
+_SZ = ctypes.c_size_t
+_I64 = ctypes.c_int64
+# C++ host entry -> (argument types, return type): the deflate planner, and
+# the native tier's block codecs and hashes (``native``; each codec returns
+# its byte count, or -(offset + 1) on malformed input).
 _HOST_SIGNATURES = {
-    "acx_inflate_plan_batch": [_P, _L, _L, _P, _I, _I, _I, _P, _P, _P],
+    "acx_inflate_plan_batch": ([_P, _L, _L, _P, _I, _I, _I, _P, _P, _P], None),
+    "actpu_xxh32": ([_P, _SZ, _U32], _U32),
+    "actpu_xxh64": ([_P, _SZ, _U64], _U64),
+    "actpu_crc32c": ([_P, _SZ, _U32], _U32),
+    "actpu_lz4_compress": ([_P, _SZ, _P, _SZ, _I], _I64),
+    "actpu_lz4_decompress": ([_P, _SZ, _P, _SZ], _I64),
+    "actpu_snappy_compress": ([_P, _SZ, _P, _SZ, _I], _I64),
+    "actpu_snappy_decompress": ([_P, _SZ, _P, _SZ], _I64),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -74,6 +86,10 @@ def _sources() -> list[Path]:
 
 def _host_sources() -> list[Path]:
     return sorted(HOST_SRC.rglob("*.cc"))
+
+
+def _host_headers() -> list[Path]:
+    return sorted(HOST_SRC.rglob("*.h"))
 
 
 def _hashed_path(directory: Path, stem: str, flags, sources) -> Path:
@@ -93,7 +109,7 @@ def library_path() -> Path:
 def host_library_path() -> Path:
     """Where the host library for the current sources and flags lives."""
     return _hashed_path(HOST_BUILD_DIR, "libaircompressor_host", GXX_FLAGS,
-                        _host_sources())
+                        _host_sources() + _host_headers())
 
 
 def _nvcc() -> str:
@@ -162,7 +178,7 @@ def build_host() -> Path:
     HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
     gxx = shutil.which("g++") or shutil.which("c++")
     if gxx is None:
-        raise RuntimeError("g++ not found: the deflate planner needs a C++ compiler")
+        raise RuntimeError("g++ not found: the host library needs a C++ compiler")
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     cmd = [gxx, *GXX_FLAGS, "-shared", "-o", str(tmp),
            *(str(src) for src in _host_sources())]
@@ -180,10 +196,10 @@ def load_host() -> ctypes.CDLL:
     global _host_lib
     if _host_lib is None:
         lib = ctypes.CDLL(str(build_host()))
-        for name, argtypes in _HOST_SIGNATURES.items():
+        for name, (argtypes, restype) in _HOST_SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = None
+            fn.restype = restype
         _host_lib = lib
     return _host_lib
 

@@ -14,3 +14,9 @@ class MalformedInputException(ValueError):
         self.offset = int(offset)
         self.reason = reason
         super().__init__(f"{reason}: offset={offset}")
+
+
+class IncompatiblePlatformException(RuntimeError):
+    """Raised when a backend tier cannot run on the current platform (the
+    JAX package's counterpart of the same name; the reference's
+    IncompatibleJvmException)."""

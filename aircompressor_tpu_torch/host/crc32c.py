@@ -8,7 +8,8 @@ where A(c) = T[c & 0xff] ^ (c >> 8) advances the state by one byte and T is
 the byte table. Each byte's term is advanced by A^(n-1-i) through the binary
 digits of its exponent, one fixed map A^(2^j) a round, each map held as
 4x256 u32 tables; the terms are then XOR-reduced. ``ops.checksum`` runs the
-same rounds on (B, L) tensors with these tables.
+same rounds on (B, L) tensors with these tables. ``masked_crc32c`` and the
+streaming ``Crc32C`` are the JAX module's too.
 """
 
 from __future__ import annotations
@@ -113,3 +114,24 @@ def crc32c_raw(data, crc: int = 0) -> int:
 def mask_crc(crc: int) -> int:
     """Snappy framing-format CRC mask: rotate right by 15, add 0xa282ead8."""
     return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def masked_crc32c(data) -> int:
+    return mask_crc(crc32c_raw(data))
+
+
+class Crc32C:
+    """Streaming CRC32-C with an update/digest interface."""
+
+    def __init__(self) -> None:
+        self._crc = 0
+
+    def update(self, data) -> "Crc32C":
+        self._crc = crc32c_raw(data, self._crc)
+        return self
+
+    def digest(self) -> int:
+        return self._crc
+
+    def masked_digest(self) -> int:
+        return mask_crc(self._crc)

@@ -1,13 +1,16 @@
 """The x-snappy-framed stream format (snappy framing_format.txt), host side.
 
-``iter_frames`` is a copy of ``aircompressor_tpu.snappy.framed.iter_frames``
-and walks a stream for the device decode
-(``ops.batch.snappy_framed_decompress_device``). ``compress_framed`` writes a
-stream the way ``aircompressor_tpu.snappy.framed.compress_framed`` does with
-its defaults (64 KB chunks, a chunk kept uncompressed unless it shrinks below
-0.85 of its size, masked CRC32-C of the uncompressed bytes), with every chunk
-compressed in one call of a batch compressor. ``chunk_spans`` lists where
-each chunk of a stream starts, for checks that alter one chunk.
+The format's constants and its one walk and one chunk writer, shared by the
+device decode (``ops.batch.snappy_framed_decompress_device``) and the
+streams of ``snappy.framed``. ``iter_frames`` is a copy of
+``aircompressor_tpu.snappy.framed.iter_frames``. ``data_chunk`` writes one
+data chunk (kept uncompressed unless it shrinks below 0.85 of its size,
+masked CRC32-C of the uncompressed bytes first). ``compress_framed`` is the
+batch framer: it writes a stream the way
+``aircompressor_tpu.snappy.framed.compress_framed`` does with its defaults
+(64 KB chunks), with every chunk compressed in one call of a batch
+compressor. ``chunk_spans`` lists where each chunk of a stream starts, for
+checks that alter one chunk.
 """
 
 from __future__ import annotations
@@ -34,6 +37,17 @@ def chunk(kind: int, body: bytes) -> bytes:
     return bytes([kind, n & 0xFF, (n >> 8) & 0xFF, (n >> 16) & 0xFF]) + body
 
 
+def data_chunk(block: bytes, blob: bytes, crc: int,
+               min_ratio: float = MIN_COMPRESSION_RATIO) -> bytes:
+    """The data chunk of ``block``: its Snappy block ``blob`` if that is
+    below ``min_ratio`` of the block's size, else the block stored; ``crc``
+    (the masked CRC32-C, or 0) comes first."""
+    head = crc.to_bytes(4, "little")
+    if len(blob) < len(block) * min_ratio:
+        return chunk(COMPRESSED_CHUNK, head + blob)
+    return chunk(UNCOMPRESSED_CHUNK, head + block)
+
+
 def compress_framed(data: bytes,
                     compress_chunks: Callable[[Sequence[bytes]], list[bytes]] | None = None
                     ) -> bytes:
@@ -46,14 +60,9 @@ def compress_framed(data: bytes,
         blobs = [snappy.compress(b) for b in blocks]
     else:
         blobs = compress_chunks(blocks)
-    parts = [HEADER]
-    for block, blob in zip(blocks, blobs, strict=True):
-        crc = mask_crc(crc32c_raw(block)).to_bytes(4, "little")
-        if len(blob) < len(block) * MIN_COMPRESSION_RATIO:
-            parts.append(chunk(COMPRESSED_CHUNK, crc + blob))
-        else:
-            parts.append(chunk(UNCOMPRESSED_CHUNK, crc + block))
-    return b"".join(parts)
+    return HEADER + b"".join(
+        data_chunk(block, blob, mask_crc(crc32c_raw(block)))
+        for block, blob in zip(blocks, blobs, strict=True))
 
 
 def chunk_spans(stream: bytes) -> list[tuple[int, int]]:

@@ -2,8 +2,9 @@
 
 The port's copy of ``aircompressor_tpu.zstd.device_prep``: the same plan,
 field for field, with one addition (``plan_batch(..., item_errors=True)``).
-It holds its own copy of the frame-header and sequence-table readers of the
-JAX package's host decoder; the port has no host frame decoder.
+It holds the port's one copy of the frame-header and sequence-table readers
+of the JAX package's host decoder; the port's host decoder
+(``zstd.frame_dec``) takes them from here.
 
 Only headers and table descriptions are parsed here; the entropy-coded
 payloads stay in the one flat input buffer for the kernels
@@ -112,7 +113,7 @@ class BatchPlan:
 
 # ------------------------------------------- frame headers and sequence tables
 # The header and table readers of the JAX package's host decoder
-# (``zstd/frame_dec.py``), the only parts of it the planner needs.
+# (``zstd/frame_dec.py``); ``zstd.frame_dec`` imports them from here.
 
 _PREDEFINED = {}
 

@@ -61,7 +61,13 @@ def on_device(device: torch.device):
 def checksum_step(data: torch.Tensor, lengths: torch.Tensor) -> dict:
     """Batched checksums: xxh64 (zstd frames) as one int64 holding its 64
     bits, xxh32 (LZ4 frames), masked CRC32-C (Snappy framing) and the byte
-    total of the lengths (int64)."""
+    total of the lengths (int64).
+
+    ``"bytes"`` sums the raw lengths, as the JAX step's sum (and its
+    ``psum``) does, while the three hashes clamp each length to [0, L]: a
+    row of length -7 hashes as the empty row and one past L as the whole
+    row. The JAX tiers hash such rows by the raw length and give values of
+    neither row (F11 in ROADMAP.md)."""
     return {"xxh64": xxhash.xxh64(data, lengths), "xxh32": xxhash.xxh32(data, lengths),
             "crc32c": checksum.mask_crc(checksum.crc32c(data, lengths)),
             "bytes": lengths.to(torch.int64).sum()}

@@ -3382,6 +3382,184 @@ def gloo_ranks(mp: dict) -> list[dict]:
     return reports
 
 
+def families_phase(dev, corpus: list[bytes], card: str) -> dict:
+    """The codec families on the host, held to the card's batch decoders.
+
+    (a) Builds the host library with g++ and requires the native tier; (b)
+    round-trips the corpus's first 32 chunks through each family's native
+    tier (LZO has only its numpy tier, zstd's own tier is numpy) and 2 text
+    chunks of them through the Snappy and LZ4 numpy tiers, each tier
+    decoding the other's output; (c) sends the block API's
+    LZ4 blocks, LZO blocks and zstd frames (the own encoder's, and
+    libzstd's where the machine has it) to ``Lz4BatchCodec``,
+    ``LzoBatchCodec`` and ``ZstdBatchCodec`` on the card, whose bytes must
+    equal the originals and the host decoders' (the zstd frames'
+    ``zstd.frame_dec`` among them); (d) writes the 2 MB as one
+    ``SnappyFramedOutputStream`` and decodes it with
+    ``snappy_framed_decompress_device`` and ``SnappyFramedInputStream``.
+    The LZ4 frame, lzop and zstd stream formats, which have no device path,
+    round-trip on the host. Returns the launches of each card kernel in
+    (c) and (d), each required to be nonzero, and the phase's numbers."""
+    import ctypes.util
+    import io
+
+    from aircompressor_tpu_torch import _build, lz4, lzo, native, snappy, zstd
+    from aircompressor_tpu_torch.lz4 import frame_codec
+    from aircompressor_tpu_torch.lz4 import streams as lz4_streams
+    from aircompressor_tpu_torch.lzo import lzop
+    from aircompressor_tpu_torch.native import zstd_binding
+    from aircompressor_tpu_torch.ops import (
+        checksum, lz4_decode, lzo_decode, snappy_decode, xxhash, zstd_decode)
+    from aircompressor_tpu_torch.ops.batch import (
+        Lz4BatchCodec, LzoBatchCodec, ZstdBatchCodec, snappy_framed_decompress_device)
+    from aircompressor_tpu_torch.snappy import framed as snappy_framed
+    from aircompressor_tpu_torch.zstd import frame_dec
+    from aircompressor_tpu_torch.zstd import streams as zstd_streams
+
+    print("== families: block API, native tier and stream formats, held to the "
+          "card's batch decoders", flush=True)
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    lib = _build.build_host()
+    t_build = time.perf_counter() - t0
+    require(native.is_enabled(), f"the native tier is enabled ({native.load_error()})")
+    picks = {f.__qualname__.split(".")[0]: type(f()).__name__ for f in (
+        snappy.SnappyCompressor.create, snappy.SnappyDecompressor.create,
+        lz4.Lz4Compressor.create, lz4.Lz4Decompressor.create,
+        lzo.LzoCompressor.create, lzo.LzoDecompressor.create,
+        zstd.ZstdCompressor.create, zstd.ZstdDecompressor.create)}
+    require(picks["SnappyCompressor"] == "SnappyNativeCompressor"
+            and picks["Lz4Decompressor"] == "Lz4NativeDecompressor",
+            "create() picks the native tier")
+    has_libzstd = zstd_binding.is_enabled()
+    print(f"host library {lib.name} ready in {t_build:.2f} s; create() picks "
+          f"{json.dumps(picks)}; libzstd found: {has_libzstd} "
+          f"({ctypes.util.find_library('zstd')})")
+
+    chunks = corpus[:32]
+    data = b"".join(chunks)
+    rates = {}
+
+    def round_trip(name, comp, dec, raws):
+        t0 = time.perf_counter()
+        blobs = [comp.compress(r) for r in raws]
+        t_c = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        outs = [dec.decompress(b, CHUNK) for b in blobs]
+        t_d = time.perf_counter() - t0
+        require(outs == raws, f"{name} round-trips {len(raws)} chunks")
+        n = sum(map(len, raws)) / 1e6
+        rates[name] = {"chunks": len(raws), "compress_MBps": n / t_c,
+                       "decompress_MBps": n / t_d,
+                       "ratio": sum(map(len, blobs)) / sum(map(len, raws))}
+        return blobs
+
+    snappy_n = round_trip("snappy native", snappy.SnappyNativeCompressor(),
+                          snappy.SnappyNativeDecompressor(), chunks)
+    lz4_n = round_trip("lz4 native", lz4.Lz4NativeCompressor(),
+                       lz4.Lz4NativeDecompressor(), chunks)
+    lzo_blobs = round_trip("lzo numpy", lzo.LzoCompressor(), lzo.LzoDecompressor(), chunks)
+    zstd_ref = round_trip("zstd own (numpy)", zstd.ZstdRefCompressor(),
+                          zstd.ZstdRefDecompressor(), chunks)
+    zstd_n = (round_trip("zstd libzstd", zstd.ZstdNativeCompressor(),
+                         zstd.ZstdNativeDecompressor(), chunks) if has_libzstd else [])
+    two = chunks[4:6]  # text chunks: 0-3 are a zero, a run, a period-2 and a ramp
+    snappy_r = round_trip("snappy numpy", snappy.SnappyRefCompressor(),
+                          snappy.SnappyRefDecompressor(), two)
+    lz4_r = round_trip("lz4 numpy", lz4.Lz4RefCompressor(), lz4.Lz4RefDecompressor(), two)
+    for name, dec, blobs in [
+            ("snappy numpy on native blocks", snappy.SnappyRefDecompressor(), snappy_n[4:6]),
+            ("snappy native on numpy blocks", snappy.SnappyNativeDecompressor(), snappy_r),
+            ("lz4 numpy on native blocks", lz4.Lz4RefDecompressor(), lz4_n[4:6]),
+            ("lz4 native on numpy blocks", lz4.Lz4NativeDecompressor(), lz4_r)]:
+        require([dec.decompress(b, CHUNK) for b in blobs] == two, name)
+    if has_libzstd:
+        require([zstd.ZstdNativeDecompressor().decompress(f, CHUNK) for f in zstd_ref[4:6]]
+                == two, "libzstd decodes the own encoder's frames")
+    zstd_host = {}
+    for name, frames in (("own", zstd_ref), ("libzstd", zstd_n)):
+        outs = []
+        for f in frames:
+            dst = np.empty(CHUNK, np.uint8)
+            outs.append(dst[:frame_dec.decompress(np.frombuffer(f, np.uint8), dst)].tobytes())
+        require(outs == chunks[:len(frames)], f"frame_dec decodes the {name} frames")
+        zstd_host[name] = outs
+
+    print("-- block API output to the card", flush=True)
+    snappy_decode.launches = checksum.launches = lz4_decode.launches = 0
+    lzo_decode.launches = xxhash.launches = 0
+    zstd_decode.huffman_launches = zstd_decode.fse_launches = zstd_decode.execute_launches = 0
+    t0 = time.perf_counter()
+    got = Lz4BatchCodec(device=dev).decompress_chunks(lz4_n)
+    require(got == chunks, "the card decodes Lz4NativeCompressor's blocks to the originals")
+    require(got == [lz4.Lz4NativeDecompressor().decompress(b, CHUNK) for b in lz4_n],
+            "the card's LZ4 bytes equal the host decoder's")
+    got = LzoBatchCodec(device=dev).decompress_chunks(lzo_blobs)
+    require(got == chunks == [lzo.LzoDecompressor().decompress(b, CHUNK) for b in lzo_blobs],
+            "the card decodes LzoCompressor's blocks as the host does")
+    zc = ZstdBatchCodec(device=dev)
+    for name, frames in (("own", zstd_ref), ("libzstd", zstd_n)):
+        if frames:
+            got = zc.decompress_chunks(frames)
+            require(got == zstd_host[name] == chunks,
+                    f"the card decodes the {name} zstd frames as frame_dec does")
+
+    print("-- a framed stream to the card", flush=True)
+    sink = io.BytesIO()
+    out = snappy_framed.SnappyFramedOutputStream(sink)
+    out.write(data)
+    out.close()
+    stream = sink.getvalue()
+    got = snappy_framed_decompress_device(stream, device=dev)
+    require(got == data, "the card decodes the SnappyFramedOutputStream to the 2 MB")
+    require(snappy_framed.SnappyFramedInputStream(io.BytesIO(stream)).read() == data,
+            "SnappyFramedInputStream decodes it to the 2 MB")
+    t_card = time.perf_counter() - t0
+    counts = {"snappy_decode": snappy_decode.launches, "crc32c": checksum.launches,
+              "lz4_decode": lz4_decode.launches, "lzo_decode": lzo_decode.launches,
+              "zstd_huffman": zstd_decode.huffman_launches,
+              "zstd_fse": zstd_decode.fse_launches,
+              "zstd_execute": zstd_decode.execute_launches}
+    require(all(n > 0 for n in counts.values()), f"the phase launched each kernel: {counts}")
+    counts_xxh64 = xxhash.launches
+
+    print("-- frame and stream formats on the host", flush=True)
+    formats = {}
+
+    def host_format(name, encode, decode, raw=data):
+        t0 = time.perf_counter()
+        blob = encode(raw)
+        t_c = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        require(decode(blob) == raw, f"{name} round-trips {len(raw)} B")
+        formats[name] = {"in_bytes": len(raw), "out_bytes": len(blob),
+                         "compress_MBps": len(raw) / 1e6 / t_c,
+                         "decompress_MBps": len(raw) / 1e6 / (time.perf_counter() - t0)}
+
+    fc = frame_codec.Lz4FrameCompressor.create(block_checksums=True, content_checksum=True,
+                                               content_size=True)
+    host_format("lz4 frame (native blocks)", fc.compress,
+                lambda b: frame_codec.Lz4FrameDecompressor.create().decompress(b, len(data)))
+    host_format("lz4 frame stream", lambda d: lz4_streams.compress_stream(d, block_max_id=4),
+                lz4_streams.decompress_stream)
+    host_format("x-snappy-framed stream", snappy_framed.compress_framed,
+                snappy_framed.decompress_framed)
+    host_format("lzop", lambda d: lzop.compress_file(d, lzop.F_ADLER32_D | lzop.F_ADLER32_C),
+                lzop.decompress_file)
+    # the stream encoder matches each 128 KB block against its whole window
+    # in Python, so its time grows faster than its input: 4 blocks, not 16
+    host_format("zstd stream (own encoder)", zstd_streams.compress_stream,
+                zstd_streams.decompress_stream, data[:4 * 131072])
+    t_total = time.perf_counter() - t_phase
+    print(f"families: {len(chunks)} chunks, {len(data)} B; card decodes (LZ4, LZO, zstd "
+          f"{'own and libzstd' if has_libzstd else 'own'} frames, the framed stream) "
+          f"{t_card:.3f} s; launches {json.dumps(counts)} (xxh64 {counts_xxh64}); "
+          f"phase {t_total:.2f} s (host clock)")
+    print(f"host tiers on the card machine's host CPU ({card}), MB/s of "
+          "uncompressed bytes: " + json.dumps({"blocks": rates, "formats": formats}))
+    return {"counts": counts, "seconds": t_total, "card_seconds": t_card}
+
+
 def main() -> None:
     print("== device", flush=True)
     if not torch.cuda.is_available():
@@ -3826,6 +4004,8 @@ def main() -> None:
           f"{gbps(len(data), t_framed * 1e3):.3f} GB/s); of which frame walk "
           f"and packing {t_walk:.4f} s")
 
+    families = families_phase(dev, corpus, card)
+
     print("== LZ4 path at real size (generated corpus)", flush=True)
     want_hash32 = [host_xxh32(c) for c in corpus]
     lz4_codec = Lz4BatchCodec()  # the card by default; its canaries run here
@@ -4195,6 +4375,11 @@ def main() -> None:
     ]
     kernels += z_entries + ld_entries + zc_entries
     require(len(kernels) == 15, f"15 kernels in the line, got {len(kernels)}")
+    for e in kernels:  # the families phase drives seven of them again
+        if e["name"] in families["counts"]:
+            e["families_launches"] = families["counts"][e["name"]]
+    require(sum("families_launches" in e for e in kernels) == len(families["counts"]),
+            "every kernel of the families phase is in the line")
     for e in kernels:  # the seeded checks hold the xxHash kernels too
         if e["name"] in seed_errs:
             e["max_abs_err"] = max(e["max_abs_err"], seed_errs[e["name"]])

@@ -116,6 +116,49 @@ def test_lzo_and_deflate_run_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_families_and_streams_run_with_jax_blocked():
+    """Every codec family (both tiers where there are two), frame and
+    stream format round-trips on the CPU with jax and the JAX package
+    blocked, and the module scan above covers their modules."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for module in ("api", "native/__init__", "native/zstd_binding", "xxhash/__init__",
+                   "crc/__init__", "snappy/framed", "lz4/frame", "lz4/frame_codec",
+                   "lz4/streams", "lzo/lzop", "zstd/frame_dec", "zstd/streams"):
+        assert f"aircompressor_tpu_torch/{module}.py" in names, module
+    code = ("import sys\n"
+            f"for name in {BLOCKED!r}: sys.modules[name] = None\n"
+            "from aircompressor_tpu_torch import crc, lz4, lzo, native, snappy, xxhash, zstd\n"
+            "from aircompressor_tpu_torch.lz4 import frame_codec, streams as lz4s\n"
+            "from aircompressor_tpu_torch.lzo import lzop\n"
+            "from aircompressor_tpu_torch.snappy import framed\n"
+            "from aircompressor_tpu_torch.zstd import frame_dec, streams as zs\n"
+            "from aircompressor_tpu_torch.ops.batch import _selfcheck_payload\n"
+            "raw = _selfcheck_payload(2)[:9000] + bytes(3000)\n"
+            "assert native.is_enabled(), native.load_error()\n"
+            "pairs = [(snappy.SnappyRefCompressor(), snappy.SnappyRefDecompressor()),\n"
+            "         (snappy.SnappyNativeCompressor(), snappy.SnappyNativeDecompressor()),\n"
+            "         (lz4.Lz4RefCompressor(), lz4.Lz4RefDecompressor()),\n"
+            "         (lz4.Lz4NativeCompressor(), lz4.Lz4NativeDecompressor()),\n"
+            "         (lzo.LzoCompressor.create(), lzo.LzoDecompressor.create()),\n"
+            "         (zstd.ZstdRefCompressor(), zstd.ZstdRefDecompressor()),\n"
+            "         (zstd.ZstdCompressor.create(), zstd.ZstdDecompressor.create()),\n"
+            "         (frame_codec.Lz4FrameCompressor.create(content_checksum=True),\n"
+            "          frame_codec.Lz4FrameDecompressor.create())]\n"
+            "for c, d in pairs:\n"
+            "    assert d.decompress(c.compress(raw), len(raw)) == raw, type(c)\n"
+            "assert framed.decompress_framed(framed.compress_framed(raw)) == raw\n"
+            "assert lz4s.decompress_stream(lz4s.compress_stream(raw)) == raw\n"
+            "assert lzop.decompress_file(lzop.compress_file(raw)) == raw\n"
+            "assert zs.decompress_stream(zs.compress_stream(raw)) == raw\n"
+            "assert xxhash.xxh64(raw) == native.xxh64(raw)\n"
+            "assert crc.crc32c_raw(raw) == native.crc32c(raw)\n"
+            "loaded = sorted(m for m in sys.modules\n"
+            f"                if m.split('.')[0] in {BLOCKED!r})\n"
+            f"assert loaded == sorted({BLOCKED!r}), loaded\n")
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_source_scan_sees_package_imports():
     assert _imported_roots("from aircompressor_tpu.ops.batch import _pack") == [
         "aircompressor_tpu"]

@@ -83,6 +83,39 @@ def test_checksum_step_equals_the_jax_step(batch, checksums):
     assert int(checksums["bytes"]) == int(want["bytes"]) == int(batch[1].sum())
 
 
+def test_f11_lengths_outside_the_row_clamp_in_the_port_only():
+    """F11, pinned: at L = 256 and lengths -7, 0, 1, 200, 256 and 261 the two
+    steps agree on the in-range rows and on ``"bytes"`` (the raw sum, 711);
+    on the -7 and 261 rows the port's three hashes are those of the empty
+    row and of the whole row (host tiers), and the JAX tiers', which take
+    the raw length, differ from them."""
+    from aircompressor_tpu_torch.host.crc32c import crc32c_raw, mask_crc
+    from aircompressor_tpu_torch.host.xxhash import xxh32 as host_xxh32
+
+    lengths = np.array([-7, 0, 1, 200, 256, 261], np.int32)
+    data = np.random.default_rng(11).integers(0, 256, (lengths.size, 256), dtype=np.uint8)
+    got = pipeline.checksum_step(torch.from_numpy(data), torch.from_numpy(lengths))
+    want = jax.jit(jax_pipeline.checksum_step)(jnp.asarray(data), jnp.asarray(lengths))
+    hi, lo = np.asarray(want["xxh64_hi"]), np.asarray(want["xxh64_lo"])
+    jax_values = {"xxh64": [(int(h) << 32) | int(w) for h, w in zip(hi, lo)],
+                  "xxh32": np.asarray(want["xxh32"]).astype(np.int64).tolist(),
+                  "crc32c": np.asarray(want["crc32c"]).astype(np.int64).tolist()}
+    port_values = {"xxh64": _u64(got["xxh64"]), "xxh32": got["xxh32"].tolist(),
+                   "crc32c": got["crc32c"].tolist()}
+    rows = [data[i, :min(max(int(n), 0), 256)] for i, n in enumerate(lengths)]
+    host_values = {"xxh64": [host_xxh64(r) for r in rows],
+                   "xxh32": [host_xxh32(r) for r in rows],
+                   "crc32c": [mask_crc(crc32c_raw(r)) for r in rows]}
+    assert int(got["bytes"]) == int(want["bytes"]) == int(lengths.sum()) == 711
+    for key in port_values:
+        for i in (1, 2, 3, 4):
+            assert port_values[key][i] == jax_values[key][i] == host_values[key][i], (key, i)
+        for i in (0, 5):
+            assert port_values[key][i] == host_values[key][i], (key, i)
+            assert jax_values[key][i] != port_values[key][i], (key, i)
+    assert host_values["crc32c"][0] == mask_crc(crc32c_raw(b""))
+
+
 def test_sharded_checksum_equals_unsharded_and_jax(batch, checksums):
     got = pipeline.sharded_checksum_step(MESH)(*map(torch.from_numpy, batch))
     assert got.keys() == checksums.keys()
