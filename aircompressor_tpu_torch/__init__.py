@@ -23,22 +23,37 @@ Entry points run on the card unless given ``device="cpu"``. ``data`` holds
 the fixtures of the checks.
 
 The JAX package's user surface, on the host as it is there: the block API
-(``api``), the codec families with their ``create()`` factories
-(``snappy``, ``lz4``, ``lzo``, ``zstd``, ``xxhash``, ``crc``), the native
-C++ tier (``native``: the block codecs and hashes of ``host/native``, and
-the system libzstd), and the frame and stream formats (``snappy.framed``,
+(``api``) and its names at the top level, the codec families with their
+``create()`` factories (``snappy``, ``lz4``, ``lzo``, ``zstd``, ``deflate``,
+``bzip2``, ``xxhash`` with XXH3, ``crc``) and ``gzip``, the native tier
+(``native``: the block codecs and hashes of ``host/native``, and the system
+libzstd and libdeflate), the frame and stream formats (``snappy.framed``,
 ``lz4.frame``, ``lz4.frame_codec``, ``lz4.streams``, ``lzo.lzop``,
-``zstd.frame_dec``, ``zstd.streams``). No ``create()`` picks the card.
+``zstd.frame_dec``, ``zstd.streams``), and the Hadoop layer (``hadoop``).
+No ``create()`` picks the card.
 """
 
-__all__ = ["api", "crc", "data", "entry", "errors", "host", "lz4", "lzo", "native",
-           "ops", "snappy", "xxhash", "zstd"]
+from .api import BufferLike, Compressor, Decompressor
+from .errors import IncompatiblePlatformException, MalformedInputException
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "BufferLike",
+    "Compressor",
+    "Decompressor",
+    "IncompatiblePlatformException",
+    "MalformedInputException",
+]
+
+SUBMODULES = ("api", "bzip2", "crc", "data", "deflate", "entry", "errors", "gzip",
+              "hadoop", "host", "lz4", "lzo", "native", "ops", "snappy", "xxhash", "zstd")
 
 
 def __getattr__(name):
     """Lazy submodule access: aircompressor_tpu_torch.ops / entry / lz4 / ..."""
     import importlib
 
-    if name in __all__:
+    if name in SUBMODULES:
         return importlib.import_module(f".{name}", __name__)
     raise AttributeError(name)

@@ -2,8 +2,8 @@
 
 The port's own copies of the JAX package's JAX-free host code that it
 needs: the Snappy, LZ4 and LZO1X block reference codecs (``snappy``,
-``lz4``, ``lzo``), the x-snappy-framed walk and a small framer
-(``framed``), CRC32-C (``crc32c``), the scalar XXH32 and XXH64
+``lz4``, ``lzo``), the own bzip2 engine (``bzip2``), the x-snappy-framed
+walk and a small framer (``framed``), CRC32-C (``crc32c``), the scalar XXH32 and XXH64
 (``xxhash``), the zstd host decoder, planner and encoder (``zstd``), and
 the raw-deflate planner (``deflate``: C++ built with g++, and its numpy
 side). They serve as oracles in checks and to build inputs; on device
@@ -12,4 +12,4 @@ planner (``deflate.plan.plan``) and, for ``LzoBatchCodec.compress_chunks``,
 the LZO encoder.
 """
 
-__all__ = ["crc32c", "deflate", "framed", "lz4", "lzo", "snappy", "xxhash", "zstd"]
+__all__ = ["bzip2", "crc32c", "deflate", "framed", "lz4", "lzo", "snappy", "xxhash", "zstd"]

@@ -3,8 +3,9 @@
 
 The one-shot ``xxh32`` and ``xxh64`` dispatch to the native C++ tier when
 its library is built (``native``), else to the scalar tier
-(``host/xxhash.py``); the streaming states are the scalar tier's. XXH3
-(``aircompressor_tpu.xxhash.xxh3``) is not ported yet. The batched hashes
+(``host/xxhash.py``); the streaming states are the scalar tier's. XXH3 64
+and 128, one-shot and streaming, are the system libxxhash's (``xxh3``,
+native only, as in the JAX package and the reference). The batched hashes
 on the card are ``ops.xxhash``."""
 
 from __future__ import annotations
@@ -30,4 +31,24 @@ def xxh64(data, seed: int = 0) -> int:
     return _xxh64_scalar(data, seed)
 
 
-__all__ = ["xxh32", "xxh64", "XxHash32State", "XxHash64State"]
+from .xxh3 import (  # noqa: E402 — native-only tier, mirrors XxHash3Native
+    XxHash3Hasher,
+    XxHash3Hasher128,
+    XxHash128,
+    xxh3_64,
+    xxh3_128,
+)
+from .xxh3 import is_enabled as xxh3_is_enabled  # noqa: E402
+
+__all__ = [
+    "xxh32",
+    "xxh64",
+    "XxHash32State",
+    "XxHash64State",
+    "xxh3_64",
+    "xxh3_128",
+    "xxh3_is_enabled",
+    "XxHash3Hasher",
+    "XxHash3Hasher128",
+    "XxHash128",
+]

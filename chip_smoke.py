@@ -21,6 +21,18 @@ read just after:
   counts, every byte held to the corpus and to the decode kernel's output;
 - framed: an x-snappy-framed stream of the corpus through
   ``snappy_framed_decompress_device``;
+- families: the block API, native tier and stream formats on the host
+  over the corpus's first 32 chunks, their LZ4 and LZO blocks and zstd
+  frames through the batch decoders and a ``SnappyFramedOutputStream``
+  through ``snappy_framed_decompress_device`` (``families_phase``);
+- compat: the deflate family (zlib level 4, and libdeflate at levels 1, 4
+  and 12 where the machine has it) on the corpus, a gzip member a chunk
+  and the Hadoop layer's Snappy, LZ4, LZO and DefaultCodec streams over
+  the first 32 chunks, their deflate bodies and blocks through
+  ``DeflateBatchCodec``, ``SnappyBatchCodec``, ``Lz4BatchCodec`` and
+  ``LzoBatchCodec``, every gzip CRC-32 and ISIZE and every Adler-32 held
+  to the card's bytes; bzip2 (libbz2, and the own engine on 512 KB) and
+  XXH3 on the host (``compat_phase``);
 - LZ4: ``Lz4BatchCodec.compress_chunks`` and ``decompress_chunks`` on the
   corpus, and the corpus tiled 16 times through the LZ4 encode kernel, the
   LZ4 decode kernel and the xxh32 kernel;
@@ -3560,6 +3572,245 @@ def families_phase(dev, corpus: list[bytes], card: str) -> dict:
     return {"counts": counts, "seconds": t_total, "card_seconds": t_card}
 
 
+def gzip_member_parts(member: bytes) -> tuple[bytes, int, int]:
+    """One gzip member's raw-deflate body, CRC-32 and ISIZE. The header is
+    read by RFC 1952 §2.3: ID1 ID2 CM FLG MTIME XFL OS, then FEXTRA (a
+    little-endian length and that many bytes), FNAME and FCOMMENT (each
+    ended by a zero byte) and FHCRC (two bytes) where FLG sets them."""
+    require(member[:3] == b"\x1f\x8b\x08", "a gzip member starts 1f 8b 08 (deflate)")
+    flg = member[3]
+    require(flg & 0xE0 == 0, f"gzip FLG reserved bits are zero: {flg:#x}")
+    pos = 10
+    if flg & 0x04:  # FEXTRA
+        pos += 2 + int.from_bytes(member[pos:pos + 2], "little")
+    for bit in (0x08, 0x10):  # FNAME, FCOMMENT
+        if flg & bit:
+            pos = member.index(b"\x00", pos) + 1
+    if flg & 0x02:  # FHCRC
+        require(int.from_bytes(member[pos:pos + 2], "little")
+                == zlib.crc32(member[:pos]) & 0xFFFF, "gzip header CRC16")
+        pos += 2
+    return (member[pos:-8], int.from_bytes(member[-8:-4], "little"),
+            int.from_bytes(member[-4:], "little"))
+
+
+def zlib_stream_parts(stream: bytes) -> tuple[bytes, int]:
+    """A zlib stream's (RFC 1950) raw-deflate body and Adler-32: a 2-byte
+    header of CM 8, no preset dictionary and a check that CMF.FLG is a
+    multiple of 31, then the body, then the big-endian Adler-32."""
+    cmf, flg = stream[0], stream[1]
+    require(cmf & 0x0F == 8 and cmf >> 4 <= 7 and not flg & 0x20
+            and (cmf * 256 + flg) % 31 == 0, f"a zlib header: {stream[:2].hex()}")
+    return stream[2:-4], int.from_bytes(stream[-4:], "big")
+
+
+def hadoop_block_chunks(blob: bytes) -> tuple[list[int], list[bytes]]:
+    """The Hadoop block stream's ([BE32 uncompressed block length] then
+    ([BE32 chunk length] [chunk]) pairs) blocks, as written by
+    ``hadoop.BlockHadoopOutputStream``: one chunk a block. Returns the
+    blocks' uncompressed lengths and their chunks; a decode whose length
+    differs from its block's shows a block of more chunks."""
+    lens, chunks, pos = [], [], 0
+    while pos < len(blob):
+        require(pos + 8 <= len(blob), "a whole block header")
+        lens.append(int.from_bytes(blob[pos:pos + 4], "big"))
+        n = int.from_bytes(blob[pos + 4:pos + 8], "big")
+        chunks.append(blob[pos + 8:pos + 8 + n])
+        pos += 8 + n
+    require(pos == len(blob), "the block stream ends at a chunk's end")
+    return lens, chunks
+
+
+HADOOP_BUFFER = 65536  # the block streams' buffer: the batch decoders' cap
+HADOOP_CHUNKS = 32  # the corpus's first 32 chunks: 2,093,470 B
+SLOW_CUT = 512 * 1024  # the own zstd stream encoder and the own bzip2 engine
+
+
+def compat_phase(dev, corpus: list[bytes], card: str) -> dict:
+    """The rest of the user surface on the host (deflate with libdeflate,
+    gzip, bzip2, XXH3, the Hadoop layer), held to the card's batch decoders.
+
+    (a) Prints the tiers ``create()`` picks and what ``find_library`` finds
+    for deflate, xxhash and bz2: without libdeflate the zlib tier runs (the
+    JAX package's own pick), without libxxhash XXH3 is not run. (b)
+    Compresses the 256 corpus chunks with ``DeflateRefCompressor()`` (zlib
+    level 4) and with ``DeflateNativeCompressor`` at levels 1, 4 and 12
+    where libdeflate is found, and decodes each set with
+    ``DeflateBatchCodec`` on the card, then the libdeflate fixture's
+    streams (``data/libdeflate_streams.npz``), which bring libdeflate's
+    output to the card where the machine lacks the library. (c) Writes each chunk as one gzip
+    member (``gzip.compress_stream``), reads the concatenation back with
+    ``GzipInputStream``, parses each member's header and trailer, decodes
+    the bodies on the card and checks each CRC-32 and ISIZE against the
+    card's bytes. (d) Round-trips the corpus's first 32 chunks through
+    every ``CODEC_REGISTRY`` entry (zstd and the own bzip2 engine on the
+    first 512 KB), sends the Snappy, LZ4 and LZO block streams' chunks
+    (``buffer_size`` 65536) to ``SnappyBatchCodec``, ``Lz4BatchCodec`` and
+    ``LzoBatchCodec`` and DefaultCodec's bodies (a stream a chunk) to
+    ``DeflateBatchCodec``, checking each Adler-32; hashes the chunks with
+    XXH3 64 and 128, one-shot and in 4 KB pieces. The block streams cut
+    the 2 MB into 64 KB blocks, a chunk each, whatever the corpus chunks'
+    lengths. Every card decode must
+    equal the originals and the host readers; none has a fall back. Returns
+    the launches of #10, #1, #4 and #6, each required nonzero."""
+    import ctypes.util
+    import io
+
+    from aircompressor_tpu_torch import bzip2, deflate, gzip, hadoop, xxhash
+    from aircompressor_tpu_torch.data import libdeflate_library, libdeflate_streams
+    from aircompressor_tpu_torch.native import deflate_binding
+    from aircompressor_tpu_torch.ops import deflate_decode, lz4_decode, lzo_decode, snappy_decode
+    from aircompressor_tpu_torch.ops.batch import (
+        DeflateBatchCodec, Lz4BatchCodec, LzoBatchCodec, SnappyBatchCodec)
+
+    print("== compat: deflate, gzip, bzip2, XXH3 and the Hadoop layer, held to the "
+          "card's batch decoders", flush=True)
+    t_phase = time.perf_counter()
+    libs = {n: ctypes.util.find_library(n) for n in ("deflate", "xxhash", "bz2")}
+    picks = {"DeflateCompressor": type(deflate.DeflateCompressor.create()).__name__,
+             "DeflateDecompressor": type(deflate.DeflateDecompressor.create()).__name__,
+             "bzip2.create_compressor": type(bzip2.create_compressor()).__name__,
+             "xxh3_is_enabled": xxhash.xxh3_is_enabled()}
+    has_libdeflate = deflate_binding.is_enabled()
+    print(f"find_library: {json.dumps(libs)}; picks {json.dumps(picks)}")
+    if not has_libdeflate:
+        print("libdeflate not found: the deflate family runs its zlib tier, as the JAX "
+              "package's create() does; the libdeflate sets are not run, the fixture's "
+              "libdeflate streams are")
+    if not picks["xxh3_is_enabled"]:
+        print("libxxhash not found: XXH3 is not run")
+
+    rates, card_s = {}, {}
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        return out, time.perf_counter() - t0
+
+    def rate(name, n, t_c, t_d, out_bytes=None):
+        rates[name] = {"MB": n / 1e6, "compress_MBps": n / 1e6 / t_c,
+                       "decompress_MBps": n / 1e6 / t_d}
+        if out_bytes is not None:
+            rates[name]["ratio"] = out_bytes / n
+
+    deflate_decode.launches = snappy_decode.launches = 0
+    lz4_decode.launches = lzo_decode.launches = 0
+    card_deflate = DeflateBatchCodec(device=dev)
+    host_inflate = deflate.DeflateDecompressor.create()
+    total = sum(map(len, corpus))
+
+    print(f"-- (b) deflate, {len(corpus)} chunks", flush=True)
+    tiers = [("zlib 4", deflate.DeflateRefCompressor())]
+    if has_libdeflate:
+        tiers += [(f"libdeflate {lv}", deflate.DeflateNativeCompressor(lv)) for lv in (1, 4, 12)]
+    for name, comp in tiers:
+        blobs, t_c = timed(lambda: [comp.compress(c) for c in corpus])
+        host, t_d = timed(lambda: [host_inflate.decompress(b, CHUNK) for b in blobs])
+        got, card_s[f"deflate {name}"] = timed(card_deflate.decompress_chunks, blobs)
+        require(got == corpus, f"the card decodes the {name} streams to the originals")
+        require(got == host, f"the card's bytes equal {type(host_inflate).__name__}'s ({name})")
+        rate(f"deflate {name}", total, t_c, t_d, sum(map(len, blobs)))
+    fixture = libdeflate_streams()  # libdeflate's output, on any machine
+    blobs = [f["stream"] for f in fixture]
+    got, card_s["libdeflate fixture"] = timed(card_deflate.decompress_chunks, blobs)
+    require(got == [f["original"] for f in fixture]
+            == [host_inflate.decompress(b, CHUNK) for b in blobs],
+            f"the card decodes the {len(blobs)} streams of the libdeflate fixture "
+            f"({libdeflate_library()}) as the host does")
+
+    print("-- (c) gzip, a member a chunk", flush=True)
+    members, t_c = timed(lambda: [gzip.compress_stream(c) for c in corpus])
+    stream = b"".join(members)
+    back, t_d = timed(lambda: gzip.GzipInputStream(io.BytesIO(stream)).read())
+    require(back == b"".join(corpus), f"GzipInputStream reads the {len(members)} members back")
+    rate("gzip (zlib 4)", total, t_c, t_d, len(stream))
+    parts = [gzip_member_parts(m) for m in members]
+    got, card_s["gzip bodies"] = timed(card_deflate.decompress_chunks, [p[0] for p in parts])
+    require(got == corpus, "the card decodes every gzip member's body")
+    require(all(zlib.crc32(g) == crc and len(g) & 0xFFFFFFFF == isize
+                for g, (_, crc, isize) in zip(got, parts)),
+            "every member's CRC-32 and ISIZE hold for the card's bytes")
+
+    print(f"-- (d) Hadoop, the first {HADOOP_CHUNKS} chunks", flush=True)
+    chunks = corpus[:HADOOP_CHUNKS]
+    data = b"".join(chunks)
+
+    def write(streams, raw, piece=CHUNK):
+        sink = io.BytesIO()
+        out = streams.create_output_stream(sink)
+        for i in range(0, len(raw), piece):
+            out.write(raw[i:i + piece])
+        out.finish()
+        return sink.getvalue()
+
+    def read(streams, blob):
+        return streams.create_input_stream(io.BytesIO(blob)).read()
+
+    for name in sorted(hadoop.CODEC_REGISTRY):
+        streams = hadoop.get_codec(name)
+        raw = data[:SLOW_CUT] if "ZStandard" in name else data
+        blob, t_c = timed(write, streams, raw)
+        back, t_d = timed(read, streams, blob)
+        require(back == raw, f"{name} round-trips {len(raw)} B")
+        rate(f"hadoop {name.rsplit('.', 1)[1]} ({type(streams).__name__})",
+             len(raw), t_c, t_d, len(blob))
+    segments = [data[i:i + HADOOP_BUFFER] for i in range(0, len(data), HADOOP_BUFFER)]
+    for cls, batch in ((hadoop.SnappyHadoopStreams, SnappyBatchCodec),
+                       (hadoop.Lz4HadoopStreams, Lz4BatchCodec),
+                       (hadoop.LzoHadoopStreams, LzoBatchCodec)):
+        streams = cls(buffer_size=HADOOP_BUFFER)
+        blob = write(streams, data)
+        lens, blocks = hadoop_block_chunks(blob)
+        require(lens == list(map(len, segments)), f"{cls.__name__}: a block a 64 KB segment")
+        got, card_s[cls.__name__] = timed(batch(device=dev).decompress_chunks, blocks)
+        require(got == segments, f"the card decodes the {cls.__name__} chunks to the originals")
+        require(b"".join(got) == read(streams, blob),
+                f"the card's bytes equal the {cls.__name__} reader's")
+    default = hadoop.get_codec("org.apache.hadoop.io.compress.DefaultCodec")
+    zparts = [zlib_stream_parts(write(default, c)) for c in chunks]
+    got, card_s["DefaultCodec bodies"] = timed(card_deflate.decompress_chunks,
+                                               [b for b, _ in zparts])
+    require(got == chunks, "the card decodes every DefaultCodec body")
+    require(all(zlib.adler32(g) == a for g, (_, a) in zip(got, zparts)),
+            "every DefaultCodec Adler-32 holds for the card's bytes")
+    counts = {"deflate_decode": deflate_decode.launches,
+              "snappy_decode": snappy_decode.launches,
+              "lz4_decode": lz4_decode.launches, "lzo_decode": lzo_decode.launches}
+
+    print("-- bzip2 tiers and XXH3 on the host", flush=True)
+    blob, t_c = timed(bzip2.BZip2NativeCompressor().compress, data)
+    back, t_d = timed(bzip2.BZip2NativeDecompressor().decompress, blob)
+    require(back == data, "libbz2 round-trips the 2 MB")
+    rate("bzip2 libbz2 (9)", len(data), t_c, t_d, len(blob))
+    own = data[:SLOW_CUT]
+    blob, t_c = timed(bzip2.BZip2RefCompressor().compress, own)
+    back, t_d = timed(bzip2.BZip2RefDecompressor().decompress, blob)
+    require(back == own and bzip2.BZip2NativeDecompressor().decompress(blob) == own,
+            "the own engine's stream decodes in both tiers")
+    require(bzip2.BZip2RefDecompressor().decompress(bzip2.BZip2NativeCompressor().compress(own))
+            == own, "the own engine decodes libbz2's stream")
+    rate("bzip2 own engine (9)", len(own), t_c, t_d, len(blob))
+    if picks["xxh3_is_enabled"]:
+        for bits, one_shot, hasher in ((64, xxhash.xxh3_64, xxhash.XxHash3Hasher),
+                                       (128, xxhash.xxh3_128, xxhash.XxHash3Hasher128)):
+            want, t_one = timed(lambda: [one_shot(c) for c in chunks])
+            streamed = []
+            for c in chunks:
+                with hasher() as h:
+                    for i in range(0, len(c), 4096):
+                        h.update(c[i:i + 4096])
+                    streamed.append(h.digest())
+            require(streamed == want, f"XXH3-{bits} streamed in 4 KB pieces == one-shot")
+            rates[f"xxh3_{bits}"] = {"MB": len(data) / 1e6, "hash_MBps": len(data) / 1e6 / t_one}
+    t_total = time.perf_counter() - t_phase
+    print(f"compat: card decodes (s, canaries included) {json.dumps(card_s)}; "
+          f"launches {json.dumps(counts)}; phase {t_total:.2f} s (host clock)")
+    print(f"host tiers on the card machine's host CPU ({card}), MB of uncompressed bytes "
+          "and MB/s: " + json.dumps(rates))
+    require(all(n > 0 for n in counts.values()), f"the phase launched each kernel: {counts}")
+    return {"counts": counts, "seconds": t_total, "card_seconds": card_s}
+
+
 def main() -> None:
     print("== device", flush=True)
     if not torch.cuda.is_available():
@@ -4005,6 +4256,7 @@ def main() -> None:
           f"and packing {t_walk:.4f} s")
 
     families = families_phase(dev, corpus, card)
+    compat = compat_phase(dev, corpus, card)
 
     print("== LZ4 path at real size (generated corpus)", flush=True)
     want_hash32 = [host_xxh32(c) for c in corpus]
@@ -4380,6 +4632,11 @@ def main() -> None:
             e["families_launches"] = families["counts"][e["name"]]
     require(sum("families_launches" in e for e in kernels) == len(families["counts"]),
             "every kernel of the families phase is in the line")
+    for e in kernels:  # the compat phase drives four of them again
+        if e["name"] in compat["counts"]:
+            e["compat_launches"] = compat["counts"][e["name"]]
+    require(sum("compat_launches" in e for e in kernels) == len(compat["counts"]),
+            "every kernel of the compat phase is in the line")
     for e in kernels:  # the seeded checks hold the xxHash kernels too
         if e["name"] in seed_errs:
             e["max_abs_err"] = max(e["max_abs_err"], seed_errs[e["name"]])

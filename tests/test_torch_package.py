@@ -159,6 +159,70 @@ def test_families_and_streams_run_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_compat_families_run_with_jax_blocked():
+    """deflate (zlib and libdeflate), gzip, bzip2 (both tiers, the own
+    engine in ``host/bzip2.py``), XXH3 and every Hadoop codec round-trip on
+    the CPU with jax and the JAX package blocked, and the module scan above
+    covers their modules."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for module in ("native/deflate_binding", "deflate/__init__", "gzip/__init__",
+                   "host/bzip2", "bzip2/__init__", "xxhash/xxh3", "hadoop/__init__"):
+        assert f"aircompressor_tpu_torch/{module}.py" in names, module
+    code = ("import io, sys\n"
+            f"for name in {BLOCKED!r}: sys.modules[name] = None\n"
+            "from aircompressor_tpu_torch import bzip2, deflate, gzip, hadoop, xxhash\n"
+            "from aircompressor_tpu_torch.native import deflate_binding\n"
+            "from aircompressor_tpu_torch.ops.batch import _selfcheck_payload\n"
+            "raw = _selfcheck_payload(5)[:6000] + bytes(2000)\n"
+            "pairs = [(deflate.DeflateRefCompressor(), deflate.DeflateRefDecompressor()),\n"
+            "         (deflate.DeflateCompressor.create(), deflate.DeflateDecompressor.create())]\n"
+            "if deflate_binding.is_enabled():\n"
+            "    pairs.append((deflate.DeflateNativeCompressor(12),\n"
+            "                  deflate.DeflateNativeDecompressor()))\n"
+            "for c, d in pairs:\n"
+            "    assert d.decompress(c.compress(raw), len(raw)) == raw, type(c)\n"
+            "assert gzip.decompress_stream(gzip.compress_stream(raw)) == raw\n"
+            "for c, d in [(bzip2.BZip2RefCompressor(1), bzip2.BZip2NativeDecompressor()),\n"
+            "             (bzip2.BZip2NativeCompressor(), bzip2.BZip2RefDecompressor())]:\n"
+            "    assert d.decompress(c.compress(raw)) == raw, type(c)\n"
+            "assert bzip2.decompress_stream(bzip2.compress_stream(raw)) == raw\n"
+            "if xxhash.xxh3_is_enabled():\n"
+            "    h = xxhash.XxHash3Hasher128().update(raw[:77]).update(raw[77:])\n"
+            "    assert h.digest() == xxhash.xxh3_128(raw)\n"
+            "for name, streams in hadoop.CODEC_REGISTRY.items():\n"
+            "    sink = io.BytesIO()\n"
+            "    out = streams.create_output_stream(sink)\n"
+            "    out.write(raw)\n"
+            "    out.finish()\n"
+            "    assert streams.create_input_stream(io.BytesIO(sink.getvalue())).read() == raw\n"
+            "loaded = sorted(m for m in sys.modules\n"
+            f"                if m.split('.')[0] in {BLOCKED!r})\n"
+            f"assert loaded == sorted({BLOCKED!r}), loaded\n")
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_top_level_exports_equal_the_jax_package():
+    """The port's top level has the JAX package's names, its version and
+    lazy access to every codec family the JAX package's top level names."""
+    import aircompressor_tpu
+    import aircompressor_tpu_torch as port
+    from aircompressor_tpu_torch import api, errors
+
+    assert port.__all__ == aircompressor_tpu.__all__
+    assert port.__version__ == aircompressor_tpu.__version__ == "0.1.0"
+    assert port.Compressor is api.Compressor and port.Decompressor is api.Decompressor
+    assert port.BufferLike == api.BufferLike
+    assert port.MalformedInputException is errors.MalformedInputException
+    assert port.IncompatiblePlatformException is errors.IncompatiblePlatformException
+    for name in ("lz4", "snappy", "zstd", "lzo", "bzip2", "deflate", "gzip", "xxhash",
+                 "crc", "hadoop", "ops", "native"):
+        module = getattr(port, name)
+        assert module.__name__ == f"aircompressor_tpu_torch.{name}"
+    with pytest.raises(AttributeError):
+        port.no_such_family  # noqa: B018
+
+
 def test_source_scan_sees_package_imports():
     assert _imported_roots("from aircompressor_tpu.ops.batch import _pack") == [
         "aircompressor_tpu"]
