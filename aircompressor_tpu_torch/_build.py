@@ -10,8 +10,8 @@ the library already built. Nothing here
 includes PyTorch's headers: pointers and the stream pass as integers, which
 keeps a build to seconds. Nothing is built when the module is imported.
 
-``host/**/*.cc`` (the deflate planner and the native tier's block codecs,
-hashes and CRC, ``host/native``) compile the same way with g++ into one
+``host/**/*.cc`` (the deflate planner, the two zstd planners and the native
+tier's block codecs, hashes and CRC, ``host/native``) compile the same way with g++ into one
 library under ``build/host/``, keyed by a hash of its sources, the headers
 beside them and the flags. It runs on the CPU, so it is built wherever it
 is first used, the CPU tests included. ``-O3`` without ``-march``, so the
@@ -62,11 +62,25 @@ _SIGNATURES = {
 }
 _SZ = ctypes.c_size_t
 _I64 = ctypes.c_int64
-# C++ host entry -> (argument types, return type): the deflate planner, and
-# the native tier's block codecs and hashes (``native``; each codec returns
-# its byte count, or -(offset + 1) on malformed input).
+_STR = ctypes.c_char_p
+# The zstd compress planner's callback for numpy's argsort order
+# (``host/zstd/encode_plan.cc``): keys, their count, the order written.
+ORDER_FN = ctypes.CFUNCTYPE(_I, ctypes.POINTER(_I64), _I64, ctypes.POINTER(_I64))
+# C++ host entry -> (argument types, return type): the deflate and zstd
+# planners, and the native tier's block codecs and hashes (``native``; each
+# codec returns its byte count, or -(offset + 1) on malformed input).
 _HOST_SIGNATURES = {
     "acx_inflate_plan_batch": ([_P, _L, _L, _P, _I, _I, _I, _P, _P, _P], None),
+    "acx_zstd_decode_plan": ([_P, _L, _P, _L, _L, _P, _P, _STR, _L], _P),
+    "acx_zstd_decode_plan_write": ([_P] * 12, None),
+    "acx_zstd_decode_plan_free": ([_P], None),
+    "acx_zstd_verify_proposals": ([_P] * 8 + [_L, _L], _I64),
+    "acx_zstd_encode_plan": ([_P] * 6 + [_L, _P, ORDER_FN, _P, _P, _P, _STR, _L], _P),
+    "acx_zstd_encode_pack": ([_P] * 9, None),
+    "acx_zstd_encode_assemble": ([_P] * 8 + [_STR, _L], _I64),
+    "acx_zstd_encode_detail": ([_P, _L, _P, _P, _P], ctypes.c_int32),
+    "acx_zstd_field_cost": ([_P, _L, _P, _L, _L, _P], ctypes.c_double),
+    "acx_zstd_encode_plan_free": ([_P], None),
     "actpu_xxh32": ([_P, _SZ, _U32], _U32),
     "actpu_xxh64": ([_P, _SZ, _U64], _U64),
     "actpu_crc32c": ([_P, _SZ, _U32], _U32),

@@ -1,5 +1,8 @@
 """The host half of batched zstd compress: plans, packing and frame assembly.
 
+The reference of the C++ planner that ``ops/zstd_encode.py`` runs
+(``encode_plan.cc``), which gives the same plans, rows and frames.
+
 The port's copy of the host functions of
 ``aircompressor_tpu.ops.zstd_encode_jax``: ``_verify_proposals``,
 ``_extract_literals``, ``_Plan``, ``_plan_chunk``, ``_pack_field`` and

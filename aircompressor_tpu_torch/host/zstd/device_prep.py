@@ -1,5 +1,9 @@
 """Host-side planner for the zstd device decode.
 
+The reference of the C++ planner that ``ops/zstd_decode.py`` runs
+(``decode_plan.cc``), which gives the same plan as ``zstd_decode.pack``
+lays this one out, and the same errors.
+
 The port's copy of ``aircompressor_tpu.zstd.device_prep``: the same plan,
 field for field, with one addition (``plan_batch(..., item_errors=True)``).
 It holds the port's one copy of the frame-header and sequence-table readers

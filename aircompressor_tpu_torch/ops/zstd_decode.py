@@ -1,9 +1,13 @@
 """Batched zstd decode: three CUDA kernels, their plain PyTorch versions, and
 ``decode_batch``, the counterpart of ``aircompressor_tpu.ops.zstd_jax.decode_batch``.
 
-The host planner (``host.zstd.device_prep.plan_batch``) parses the frame,
-block and table headers of a batch; ``pack`` lays its plan out as tensors,
-one launch of each kernel for the whole batch, with no fixed geometry:
+The host planner parses the frame, block and table headers of a batch and
+lays its plan out as tensors, one launch of each kernel for the whole
+batch, with no fixed geometry. ``plan`` runs the C++ planner
+(``host/zstd/decode_plan.cc``, built with g++ by ``_build.build_host``);
+``pack`` lays out the plan of the Python planner
+(``host.zstd.device_prep.plan_batch``), which stays as its reference: the
+two give the same tensors. The kernels:
 
 - ``huffman_decode`` (``csrc/zstd_huffman.cu``): every Huffman literal
   stream into one literal buffer, and each stream's final bit count;
@@ -48,6 +52,7 @@ does; they are slow by design.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import numpy as np
@@ -546,6 +551,46 @@ def pack(plan: dp.BatchPlan, device) -> Packed:
         lit_size=plan.litpad_size, seq_slots=plan.seq_size, out_cap=plan.out_cap)
 
 
+def plan(items, out_cap: int, device) -> Packed:
+    """Plan a batch of single-frame items with the C++ planner into the
+    kernels' tensors on ``device``: ``pack(device_prep.plan_batch(items,
+    out_cap, item_errors=True), device)``, tensor for tensor. Raises
+    MalformedInputException with the first malformed item's index and the
+    Python planner's reason."""
+    lib = _build.load_host()
+    bounds = np.zeros(len(items) + 1, np.int64)
+    np.cumsum([len(b) for b in items], out=bounds[1:])
+    total = int(bounds[-1])
+    n_src = dp._align(max(total, 1))
+    src = np.frombuffer(bytearray().join([*items, bytes(n_src + SRC_PAD - total)]), np.uint8)
+    sizes = np.zeros(6, np.int64)
+    err_item = np.zeros(1, np.int64)
+    reason = ctypes.create_string_buffer(256)
+    handle = lib.acx_zstd_decode_plan(src.ctypes.data, n_src, bounds.ctypes.data, len(items),
+                                      out_cap, sizes.ctypes.data, err_item.ctypes.data,
+                                      reason, len(reason))
+    if not handle:
+        if err_item[0] < 0:
+            raise MemoryError(f"zstd decode planner: {reason.value.decode()}")
+        raise MalformedInputException(int(err_item[0]), reason.value.decode())
+    H, S, NB, F, lit_size, seq_slots = (int(v) for v in sizes)
+    arrays = dict(
+        h_params=np.zeros((H, H_WORDS), np.int32), h_perm=np.zeros((H, 256), np.uint8),
+        s_params=np.zeros((S, S_WORDS), np.int32), s_tabs=np.zeros((S, S_TABLE), np.int32),
+        s_frames=np.zeros((F, 2), np.int32), blocks=np.zeros((NB, B_WORDS), np.int32),
+        b_frames=np.zeros((F, 2), np.int32), h_frame=np.zeros(H, np.int64),
+        s_frame=np.zeros(S, np.int64), content_size=np.zeros(F, np.int64),
+        checksum=np.zeros(F, np.int64))
+    try:
+        lib.acx_zstd_decode_plan_write(handle, *(a.ctypes.data for a in arrays.values()))
+    finally:
+        lib.acx_zstd_decode_plan_free(handle)
+    device = torch.device(device)
+    tensors = {k: torch.from_numpy(a).to(device) for k, a in arrays.items()}
+    return Packed(src=torch.from_numpy(src).to(device), **tensors, lit_size=lit_size,
+                  seq_slots=seq_slots, out_cap=out_cap)
+
+
 def decode_plan(pk: Packed, verify_checksums: bool = True) -> dict:
     """Run the three kernels on a packed batch and validate each frame.
 
@@ -587,8 +632,7 @@ def decode_batch(items, out_cap: int = MAX_OUT, verify_checksums: bool = True, *
         raise ValueError(f"device zstd decode caps frames at {MAX_OUT} bytes")
     if not items:
         return []
-    plan = dp.plan_batch(list(items), out_cap, item_errors=True)
-    res = decode_plan(pack(plan, torch.device(device)), verify_checksums)
+    res = decode_plan(plan(list(items), out_cap, device), verify_checksums)
     ok = res["ok"].cpu().numpy()
     bad = np.nonzero(~ok)[0]
     if bad.size:

@@ -10,16 +10,23 @@
    chunk with no sequence takes the host matcher, as in the JAX package;
    at other levels, or with ``device_matcher=False``, every chunk takes the
    host matcher (``block_enc.find_sequences``);
-2. the host plan of each chunk (``host.zstd.device_enc._plan_chunk``:
-   repeat-offset codes, Huffman and FSE tables, mode decisions);
+2. the host plan of each chunk (``_plan_chunk``: repeat-offset codes,
+   Huffman and FSE tables, mode decisions);
 3. the emission kernel once over every chunk whose plan is marked
    ``device`` (``emit``: four Huffman literal streams and the FSE
-   sequences stream of its one block);
-4. frame assembly on the host, with each chunk's checksum from the xxh64
-   kernel over the batch. A chunk whose plan is not marked ``device``, or
-   whose block would not gain, is written by
+   sequences stream of its one block), its inputs laid out by
+   ``pack_plans``;
+4. frame assembly on the host (``_assemble``), with each chunk's checksum
+   from the xxh64 kernel over the batch. A chunk whose plan is not marked
+   ``device``, or whose block would not gain, is written by
    ``host.zstd.frame_enc.compress_bytes``: raw or RLE literals and raw
    blocks, the format's own choices, as in the JAX package.
+
+The check, the plans, the packing and the assembly run in the C++ planner
+(``host/zstd/encode_plan.cc``, built with g++ by ``_build.build_host``), one
+call a batch each (``match``, ``plan``, ``emit_plans``, ``assemble``); the
+functions named above, in ``host.zstd.device_enc``, stay as its reference,
+and ``Plans`` gives the same plans, rows and frames.
 
 With the matcher off, every frame equals ``frame_enc.compress_bytes``'s byte
 for byte. Differences from ``zstd_encode_jax.compress_batch``, by design:
@@ -43,12 +50,16 @@ JAX function would clamp and corrupt it).
 
 from __future__ import annotations
 
+import ctypes
+import traceback
+
 import numpy as np
 import torch
 
 from .. import _build
+from ..host.zstd import block_enc, frame_enc
 from ..host.zstd import device_enc as de
-from ..host.zstd import frame_enc
+from ..host.zstd.params import compute as _params
 from . import xxhash, zstd_dfast
 from ._rows import MAX_CHUNK
 
@@ -228,65 +239,207 @@ def stage(chunks, device):
             torch.tensor([len(c) for c in chunks], dtype=torch.int32, device=device))
 
 
+# device_enc._Plan.reason of each reason code of the C++ planner ("" where
+# the chunk is planned for the card)
+REASONS = ("", "size", "nseq", "small-literals", "literal-shape", "incompressible-literals")
+_ERRORS = {1: ValueError, 2: RuntimeError, 3: AssertionError}
+
+
+def _flat(chunks):
+    """The chunks one after another as uint8, and where each starts (B + 1)."""
+    off = np.zeros(len(chunks) + 1, np.int64)
+    np.cumsum([len(c) for c in chunks], out=off[1:])
+    return np.frombuffer(b"".join(chunks), np.uint8), off
+
+
+def _numpy_order(keys, n, out):
+    """The C++ planner's callback: np.argsort's order of n int64 keys, as
+    fse_enc.normalize_counts takes it (see encode_plan.cc)."""
+    try:
+        keys = np.ctypeslib.as_array(keys, (n,)).copy()
+        np.ctypeslib.as_array(out, (n,))[:] = np.argsort(keys)
+        return 0
+    except Exception:  # it cannot cross into C++, where the planner raises instead
+        traceback.print_exc()
+        return 1
+
+
+_ORDER = _build.ORDER_FN(_numpy_order)
+# seq_enc._field_cost_bits' log2 of each normalised count -1..512 by numpy,
+# where -1 counts as 0.5 and 0 as 1e-9
+_LOG2 = np.log2(np.maximum(np.r_[0.5, np.arange(513.0)], 1e-9))
+
+
+class Plans:
+    """The C++ plans of a batch of chunks from their proposals, each
+    ``device_enc._plan_chunk``'s: ``reason`` ("" where the chunk is planned
+    for the card), ``device`` (bool) and ``rows`` (the planned chunks'
+    indices, in order). ``pack`` and ``assemble`` are ``pack_plans`` and
+    ``_assemble`` over the planned chunks; ``detail`` gives a chunk's
+    Huffman table bytes and its fields' modes and descriptions."""
+
+    def __init__(self, chunks, proposals):
+        """``proposals``: each chunk's (literal lengths, offsets, match
+        lengths), empty where it has none."""
+        self._lib = _build.load_host()
+        if len(proposals) != len(chunks):
+            raise ValueError(f"{len(chunks)} chunks but {len(proposals)} proposals")
+        counts = [len(p[0]) for p in proposals]
+        if any(len(p[1]) != m or len(p[2]) != m for p, m in zip(proposals, counts)):
+            raise ValueError("a chunk's literal lengths, offsets and match lengths differ "
+                             "in length")
+        data, data_off = _flat(chunks)
+        seq_off = np.zeros(len(chunks) + 1, np.int64)
+        np.cumsum(counts, out=seq_off[1:])
+        ll, of, ml = (np.concatenate([np.zeros(0, np.int64)]
+                                     + [np.asarray(p[k], np.int64) for p in proposals])
+                      for k in range(3))
+        codes = np.zeros(len(chunks), np.int32)
+        err = np.zeros(2, np.int64)
+        msg = ctypes.create_string_buffer(256)
+        self._handle = self._lib.acx_zstd_encode_plan(
+            data.ctypes.data, data_off.ctypes.data, ll.ctypes.data, of.ctypes.data,
+            ml.ctypes.data, seq_off.ctypes.data, len(chunks), _LOG2.ctypes.data, _ORDER,
+            codes.ctypes.data, err.ctypes.data, err[1:].ctypes.data, msg, len(msg))
+        if not self._handle:
+            raise _ERRORS[int(err[0])](f"{msg.value.decode()} (chunk {int(err[1])})")
+        self.reason = [REASONS[c] for c in codes]
+        self.device = codes == 0
+        self.rows = np.nonzero(self.device)[0].tolist()
+        self.sizes = [len(c) for c in chunks]
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            self._lib.acx_zstd_encode_plan_free(self._handle)
+            self._handle = None
+
+    def pack(self) -> dict:
+        """``device_enc.pack_plans``' arrays for the planned chunks."""
+        R = len(self.rows)
+        shapes = {name: ((R, *shape), np.uint8 if dtype == torch.uint8 else np.int32)
+                  for name, dtype, shape in EMIT_INPUTS}
+        packed = {name: np.zeros(*spec) for name, spec in shapes.items()}
+        self._lib.acx_zstd_encode_pack(self._handle, *(a.ctypes.data for a in packed.values()))
+        return packed
+
+    def assemble(self, lit_bytes, lit_tot, seq_bytes, seq_tot, digest) -> list[bytes]:
+        """``_assemble`` for each planned chunk from the emission's outputs
+        (one row a planned chunk) and its XXH64: its frame, or b"" where the
+        block would not gain."""
+        R = len(self.rows)
+        arrays = []
+        for a, dtype, shape in ((lit_bytes, np.uint8, (R, 4, LSTREAM_CAP)),
+                                (lit_tot, np.int32, (R, 4)),
+                                (seq_bytes, np.uint8, (R, SSTREAM_CAP)),
+                                (seq_tot, np.int32, (R,)), (digest, np.int64, (R,))):
+            a = np.ascontiguousarray(a, dtype)
+            if a.shape != shape:
+                raise ValueError(f"emission output of shape {a.shape}, want {shape}")
+            arrays.append(a)
+        out = np.zeros(sum(self.sizes[i] + 32 for i in self.rows), np.uint8)
+        off = np.zeros(len(self.rows) + 1, np.int64)
+        msg = ctypes.create_string_buffer(256)
+        bad = self._lib.acx_zstd_encode_assemble(
+            self._handle, *(a.ctypes.data for a in arrays), out.ctypes.data, off.ctypes.data,
+            msg, len(msg))
+        if bad >= 0:
+            raise ValueError(msg.value.decode())
+        return [out[off[r]:off[r + 1]].tobytes() for r in range(len(self.rows))]
+
+    def detail(self, i: int) -> tuple[bytes, tuple, tuple]:
+        """Chunk i's Huffman table bytes (``huff_enc.write_table``), its LL,
+        OF and ML modes and their descriptions."""
+        if not 0 <= i < len(self.reason):
+            raise IndexError(f"no chunk {i} in a batch of {len(self.reason)}")
+        modes = np.zeros(3, np.int32)
+        lens = np.zeros(4, np.int64)
+        buf = np.zeros(1024, np.uint8)
+        self._lib.acx_zstd_encode_detail(self._handle, i, modes.ctypes.data, lens.ctypes.data,
+                                         buf.ctypes.data)
+        at = np.concatenate([[0], np.cumsum(lens)])
+        parts = [buf[at[k]:at[k + 1]].tobytes() for k in range(4)]
+        return parts[0], tuple(int(m) for m in modes), tuple(parts[1:])
+
+
+def verify(chunks, ll, ml, of, nseq, last, min_match: int = zstd_dfast.MIN_MATCH) -> int:
+    """``device_enc._verify_proposals`` over a batch, in C++: the first
+    chunk with sequences (``nseq`` > 0) whose proposals are unsound, or -1.
+    ``ll``, ``ml`` and ``of`` are (B, W) with each chunk's ``nseq`` first,
+    ``last`` its trailing literal count."""
+    nseq, last = (np.ascontiguousarray(a, np.int64) for a in (nseq, last))
+    B, width = np.shape(ll)
+    shapes_ok = (all(np.shape(a) == (B, width) for a in (ml, of)) and len(chunks) == B
+                 and nseq.shape == last.shape == (B,))
+    if not shapes_ok or (B and not 0 <= nseq.min() <= nseq.max() <= width):
+        raise ValueError("verify takes (B, W) proposals with (B,) counts of at most W "
+                         "and (B,) trailing literal counts for B chunks")
+    live = np.arange(width)[None, :] < nseq[:, None]
+    flat = [np.ascontiguousarray(np.asarray(a)[live], np.int64) for a in (ll, ml, of)]
+    seq_off = np.zeros(len(chunks) + 1, np.int64)
+    np.cumsum(nseq, out=seq_off[1:])
+    data, data_off = _flat(chunks)
+    check = np.ascontiguousarray(nseq > 0, np.uint8)
+    return int(_build.load_host().acx_zstd_verify_proposals(
+        data.ctypes.data, data_off.ctypes.data, *(a.ctypes.data for a in flat),
+        seq_off.ctypes.data, last.ctypes.data, check.ctypes.data, len(chunks), min_match))
+
+
 def match(chunks, raw, raw_lens) -> list:
-    """The DFAST matcher kernel over the batch, then the host check: each
-    chunk's (ll, offsets, ml, literals), or None where the kernel found no
-    sequence. Raises RuntimeError naming the first chunk the kernel flagged
-    not ok or whose proposals fail the check."""
+    """The DFAST matcher kernel over the batch, then the host check
+    (``verify``): each chunk's (ll, offsets, ml), or None where the kernel
+    found no sequence. Raises RuntimeError naming the first chunk the kernel
+    flagged not ok or whose proposals fail the check."""
     ll, ml, of, nseq, last, ok = zstd_dfast.find_sequences(raw, raw_lens)
-    nseq, last, ok = nseq.cpu().numpy(), last.cpu().numpy(), ok.cpu().numpy()
+    nseq, last, ok = (t.cpu().numpy().astype(np.int64) for t in (nseq, last, ok))
     width = int(nseq.max())
     ll, ml, of = (t[:, :width].cpu().numpy().astype(np.int64) for t in (ll, ml, of))
-    out = []
-    for i, c in enumerate(chunks):
-        if not ok[i]:
-            raise RuntimeError(f"zstd matcher kernel flagged chunk {i} not ok")
-        m = int(nseq[i])
-        if m == 0:
-            out.append(None)
-            continue
-        data = np.frombuffer(c, np.uint8)
-        if not de._verify_proposals(data, ll[i, :m], ml[i, :m], of[i, :m],
-                                    int(last[i]), zstd_dfast.MIN_MATCH):
-            raise RuntimeError(f"zstd matcher kernel proposed unsound sequences "
-                               f"for chunk {i}")
-        out.append((ll[i, :m], of[i, :m], ml[i, :m],
-                    de._extract_literals(data, ll[i, :m], ml[i, :m], int(last[i]))))
-    return out
+    unsound = verify(chunks, ll, ml, of, nseq, last)
+    not_ok = np.nonzero(ok == 0)[0]
+    if not_ok.size and (unsound < 0 or not_ok[0] <= unsound):
+        raise RuntimeError(f"zstd matcher kernel flagged chunk {int(not_ok[0])} not ok")
+    if unsound >= 0:
+        raise RuntimeError(f"zstd matcher kernel proposed unsound sequences for chunk {unsound}")
+    return [(ll[i, :m], of[i, :m], ml[i, :m]) if m else None for i, m in enumerate(nseq)]
 
 
-def plan(chunks, level: int, pres) -> list:
+def plan(chunks, level: int, pres) -> Plans:
     """The host plan of each chunk, from its proposals or, where it has none,
     from the host matcher."""
     global host_matcher_rows
     host_matcher_rows += sum(pre is None and 0 < len(c) for c, pre in zip(chunks, pres))
-    return [de._plan_chunk(c, level, pre) for c, pre in zip(chunks, pres)]
+    empty = (np.zeros(0, np.int64),) * 3
+    proposals = []
+    for c, pre in zip(chunks, pres):
+        if pre is None and 0 < len(c) <= LIT_CAP:
+            pre = block_enc.find_sequences(np.frombuffer(c, np.uint8), _params(level, len(c)))[:3]
+        proposals.append(pre if pre is not None else empty)
+    return Plans(chunks, proposals)
 
 
-def emit_plans(plans, device) -> dict:
+def emit_plans(plans: Plans, device) -> dict:
     """The emission kernel once over the plans marked ``device``: ``rows``,
     their indices, and the four outputs of ``emit`` as numpy arrays."""
-    rows_at = [i for i, p in enumerate(plans) if p.device]
-    if not rows_at:
-        return dict(rows=rows_at)
-    packed = de.pack_plans([plans[i] for i in rows_at])
+    if not plans.rows:
+        return dict(rows=plans.rows)
+    packed = plans.pack()
     out = emit(*(torch.from_numpy(packed[name]).to(device) for name, _, _ in EMIT_INPUTS))
     return dict(zip(("lit_bytes", "lit_tot", "seq_bytes", "seq_tot"),
-                    (t.cpu().numpy() for t in out)), rows=rows_at)
+                    (t.cpu().numpy() for t in out)), rows=plans.rows)
 
 
-def assemble(chunks, plans, emitted: dict, raw, raw_lens, level: int) -> list[bytes]:
+def assemble(chunks, plans: Plans, emitted: dict, raw, raw_lens, level: int) -> list[bytes]:
     """Each chunk's frame: from its emitted streams, with its checksum from
     the xxh64 kernel, or from the host encoder where it has none or its
     block would not gain."""
     global host_frame_rows
     outs = [b""] * len(chunks)
-    if emitted["rows"]:
-        digest = xxhash.xxh64(raw, raw_lens).cpu().numpy()
-        for r, i in enumerate(emitted["rows"]):
-            outs[i] = de._assemble(plans[i], emitted["lit_bytes"][r], emitted["lit_tot"][r],
-                                   emitted["seq_bytes"][r], int(emitted["seq_tot"][r]),
-                                   int(digest[i]))
+    rows_at = emitted["rows"]
+    if rows_at:
+        digest = xxhash.xxh64(raw, raw_lens).cpu().numpy()[rows_at]
+        frames = plans.assemble(emitted["lit_bytes"], emitted["lit_tot"],
+                                emitted["seq_bytes"], emitted["seq_tot"], digest)
+        for i, frame in zip(rows_at, frames):
+            outs[i] = frame
     for i, c in enumerate(chunks):
         if not outs[i]:
             outs[i] = frame_enc.compress_bytes(c, level)

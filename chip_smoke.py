@@ -2009,12 +2009,26 @@ def zstd_args(pk) -> tuple:
     return h_args, s_args, (pk.src, lit, seq3, pk.b_frames, pk.blocks)
 
 
+def packed_equal(a, b) -> bool:
+    """Two ``zstd_decode.Packed`` batches are the same, tensor for tensor:
+    dtype, shape and values, and the three sizes."""
+    return all(x.dtype == y.dtype and torch.equal(x, y) for x, y in (
+        (getattr(a, k), getattr(b, k)) for k in ZSTD_PACKED_TENSORS)) and (
+        (a.lit_size, a.seq_slots, a.out_cap) == (b.lit_size, b.seq_slots, b.out_cap))
+
+
+ZSTD_PACKED_TENSORS = ("src", "h_params", "h_perm", "s_params", "s_tabs", "s_frames", "blocks",
+                       "b_frames", "h_frame", "s_frame", "content_size", "checksum")
+
+
 def zstd_decode_path(dev, corpus: list[bytes], sustain: int = SUSTAIN) -> dict:
     """The zstd decode path: the corpus through the host encoder at level 3,
     ``ZstdBatchCodec.decompress_chunks`` on its frames, then the frames tiled
-    ``sustain`` times, planned once and run through the three kernels and
-    the xxh64 kernel, with the launch counts set to 0 just before and read
-    just after. Every byte and every XXH64 is checked."""
+    ``sustain`` times, planned once by the C++ planner and run through the
+    three kernels and the xxh64 kernel, with the launch counts set to 0 just
+    before and read just after. Every byte and every XXH64 is checked. Then
+    the Python planner (``device_prep.plan_batch`` and ``pack``) on the same
+    batches, timed beside the C++ planner, whose plans must equal its."""
     from aircompressor_tpu_torch.host.xxhash import xxh64 as host_xxh64
     from aircompressor_tpu_torch.host.zstd import device_prep, frame_enc
     from aircompressor_tpu_torch.ops import xxhash, zstd_decode
@@ -2028,6 +2042,7 @@ def zstd_decode_path(dev, corpus: list[bytes], sustain: int = SUSTAIN) -> dict:
     raw, raw_lens = to_device_batch(*_pack(corpus, CHUNK), dev)
     big_raw, big_lens = raw.repeat(sustain, 1), raw_lens.repeat(sustain)
     want_hash = [host_xxh64(c) for c in corpus] * sustain
+    tiled = frames * sustain
 
     codec = ZstdBatchCodec(device=dev)  # its canary runs on the path
     zstd_decode.huffman_launches = zstd_decode.fse_launches = 0
@@ -2036,12 +2051,9 @@ def zstd_decode_path(dev, corpus: list[bytes], sustain: int = SUSTAIN) -> dict:
     decoded = codec.decompress_chunks(frames)
     t_codec = time.perf_counter() - t0
     t0 = time.perf_counter()
-    big_plan = device_prep.plan_batch(frames * sustain, CHUNK, item_errors=True)
-    t_plan_big = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    big_pk = zstd_decode.pack(big_plan, dev)
+    big_pk = zstd_decode.plan(tiled, CHUNK, dev)
     torch.cuda.synchronize()
-    t_pack_big = time.perf_counter() - t0
+    t_plan_big = time.perf_counter() - t0
     t0 = time.perf_counter()
     big = zstd_decode.decode_plan(big_pk)
     torch.cuda.synchronize()
@@ -2062,20 +2074,41 @@ def zstd_decode_path(dev, corpus: list[bytes], sustain: int = SUSTAIN) -> dict:
             "every tiled zstd frame decodes to its original")
     require([v & (2**64 - 1) for v in big["digest"].tolist()] == want_hash,
             "every xxh64 of a decoded zstd frame equals the host's of its original")
-    t0 = time.perf_counter()
-    plan = device_prep.plan_batch(frames, CHUNK)
-    t_plan = time.perf_counter() - t0
+
+    # The two planners on the same batches, each to host tensors: the C++
+    # planner (plan and layout) against the Python planner and pack.
+    t = {}
+    for name, items in (("corpus", frames), ("tiled", tiled)):
+        t0 = time.perf_counter()
+        cc = zstd_decode.plan(items, CHUNK, "cpu")
+        t[f"cc_{name}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        py_plan = device_prep.plan_batch(items, CHUNK, item_errors=True)
+        t[f"py_{name}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        py = zstd_decode.pack(py_plan, "cpu")
+        t[f"py_pack_{name}"] = time.perf_counter() - t0
+        require(packed_equal(cc, py), f"the C++ plan of the {name} frames equals the "
+                                      f"Python planner's, tensor for tensor")
+        if name == "corpus":
+            plan = py_plan
+        else:
+            big_plan = py_plan
+    pk = zstd_decode.plan(frames, CHUNK, dev)
     print(f"host zstd encoder: {n} frames, {sum(map(len, corpus))} B -> "
           f"{sum(map(len, frames))} B in {t_encode:.2f} s (host clock)")
     print(f"ZstdBatchCodec.decompress_chunks: {n} frames in {t_codec:.3f} s (host clock, "
-          f"canary, planner, staging and copies included); planner alone {t_plan:.3f} s")
-    print(f"tiled x{sustain}: {len(big_plan.frames)} frames: planner {t_plan_big:.3f} s, "
-          f"packing and upload {t_pack_big:.3f} s, kernels and xxh64 {t_big:.3f} s (host "
-          f"clock, first call); {len(big_plan.huff_streams)} Huffman streams, "
-          f"{len(big_plan.seq_streams)} sequences sections")
+          f"canary, C++ planner, staging and copies included)")
+    print(f"tiled x{sustain}: {len(big_plan.frames)} frames: C++ planner and upload "
+          f"{t_plan_big:.4f} s, kernels and xxh64 {t_big:.3f} s (host clock, first call); "
+          f"{len(big_plan.huff_streams)} Huffman streams, {len(big_plan.seq_streams)} "
+          f"sequences sections")
+    print(f"zstd decode planners (host clock, to host tensors, plans equal): {n} frames: "
+          f"C++ {t['cc_corpus']:.4f} s, Python {t['py_corpus']:.4f} s + pack "
+          f"{t['py_pack_corpus']:.4f} s; {len(tiled)} frames: C++ {t['cc_tiled']:.4f} s, "
+          f"Python {t['py_tiled']:.4f} s + pack {t['py_pack_tiled']:.4f} s")
     print(f"zstd path launches {counts}, {exec_frames} of {n_all} frames through the "
           f"execute kernel")
-    pk = zstd_decode.pack(plan, dev)
     fse_err = 0  # the FSE kernel against its plain version on both batches
     for what, p in (("the corpus's", pk), ("the tiled", big_pk)):
         args = (p.src, p.s_params, p.s_tabs, p.s_frames, p.seq_slots)
@@ -2088,7 +2121,7 @@ def zstd_decode_path(dev, corpus: list[bytes], sustain: int = SUSTAIN) -> dict:
     print(f"zstd_fse on the corpus's {len(plan.frames)} frames and the {len(big_plan.frames)} "
           f"tiled: kernel == plain (seq3, rem, err), max_abs_err {fse_err}")
     return dict(plan=plan, pk=pk, big_plan=big_plan, fse_err=fse_err,
-                big_pk=big_pk, counts=counts, t_plan_big=t_plan_big,
+                big_pk=big_pk, counts=counts, t_plan_big=t_plan_big, planner_times=t,
                 decoded_bytes=int(big_lens.sum()), frames=frames, t_encode=t_encode)
 
 
@@ -2200,7 +2233,7 @@ def zstd_kernel_times(zk: dict, zp: dict) -> list[dict]:
             "tiled_chunks": n_big, "tiled_ms": ms_big, "tiled_bound_ms": b_big, **extra})
     print(f"zstd huffman + fse + execute, {len(zp['big_plan'].frames)} frames: "
           f"{gbps(zp['decoded_bytes'], total_big):.3f} GB/s decoded (kernels alone; the "
-          f"host planner took {zp['t_plan_big']:.3f} s)")
+          f"C++ planner and upload took {zp['t_plan_big']:.4f} s)")
     return entries
 
 
@@ -2243,7 +2276,6 @@ def zstd_encode_kernels_against_plain(dev) -> dict:
     path's width, on every output; and the emission kernel on the plans of
     those chunks, from the matcher kernel's proposals (level 3) and from the
     host matcher (level 1). Tolerance 0."""
-    from aircompressor_tpu_torch.host.zstd import device_enc
     from aircompressor_tpu_torch.ops import zstd_dfast, zstd_encode
 
     print("== zstd compress kernels against plain on the card", flush=True)
@@ -2264,11 +2296,10 @@ def zstd_encode_kernels_against_plain(dev) -> dict:
     dfast_err = max(dfast_err, dfast_rounds_against_plain(dev, edge, p, len(edge)))
     pres = zstd_encode.match(chunks, data, lens)  # the host check of every proposal
     plans3 = zstd_encode.plan(chunks, 3, pres)
-    plans = [q for q in plans3 + zstd_encode.plan(chunks, 1, [None] * len(chunks))
-             if q.device]
-    plans.append(device_enc._plan_chunk(one_sequence_case(), 3))
-    require(plans[-1].device, "the one-sequence chunk reaches the emission")
-    packed = device_enc.pack_plans(plans)
+    one = zstd_encode.plan([one_sequence_case()], 3, [None])
+    require(one.device[0], "the one-sequence chunk reaches the emission")
+    packs = [q.pack() for q in (plans3, zstd_encode.plan(chunks, 1, [None] * len(chunks)), one)]
+    packed = {k: np.concatenate([q[k] for q in packs]) for k in packs[0]}
     edge_rows, over = emit_edge_rows(packed)
     packed_all = {k: np.concatenate([v, edge_rows[k]]) for k, v in packed.items()}
     args = [torch.from_numpy(packed_all[name]).to(dev) for name, _, _ in zstd_encode.EMIT_INPUTS]
@@ -2288,7 +2319,7 @@ def zstd_encode_kernels_against_plain(dev) -> dict:
           f"{nseq}, steps {k[6].tolist()}; kernel == plain on all six outputs and steps, "
           f"max_abs_err {dfast_err}; every proposal passes the host check; plain "
           f"{t_dfast_plain:.2f} s (host clock)")
-    print(f"zstd_emit: {len(plans)} planned blocks (level 3 from the kernel's proposals "
+    print(f"zstd_emit: {len(packed['nseq'])} planned blocks (level 3 from the kernel's proposals "
           f"and level 1 from the host matcher, and the one-sequence chunk), sequences "
           f"{sorted(packed['nseq'].tolist())} and up to "
           f"{int(packed['lit_seg'][:, :, 1].sum(1).max())} literals, a row with nseq 0 and "
@@ -2296,8 +2327,7 @@ def zstd_encode_kernels_against_plain(dev) -> dict:
           f"{emit_err}; plain {t_emit_plain:.2f} s (host clock)")
     # The six 64 KB chunks alone, for the kernels' times at that shape.
     full = slice(len(edge), None)
-    full_plans = [q for q in plans3[full] if q.device]
-    full_packed = device_enc.pack_plans(full_plans)
+    full_packed = zstd_encode.plan(chunks[full], 3, pres[full]).pack()
     return dict(dfast_err=dfast_err, emit_err=emit_err,
                 dfast_args=(data[full].contiguous(), lens[full].contiguous()),
                 emit_args=[torch.from_numpy(full_packed[name]).to(dev)
@@ -2401,11 +2431,11 @@ def zstd_compress_path(dev, corpus: list[bytes], host_frames: list[bytes],
     counters set to 0 just before and read just after; every frame decoded
     through the port's zstd decode kernels with its checksum; the size
     against the host encoder's frames (``host_frames``). Then the same batch
-    again stage by stage, timed on the host clock, with equal frames; then
-    the matcher over the corpus tiled ``sustain`` times and the emission
-    over its packed plans tiled, each equal to the tiled 256-chunk
-    outputs."""
-    from aircompressor_tpu_torch.host.zstd import device_enc
+    again stage by stage, timed on the host clock, with equal frames, and
+    the Python planner on its proposals beside the C++ planner, with equal
+    plans, rows and frames; then the matcher over the corpus tiled
+    ``sustain`` times and the emission over its packed plans tiled, each
+    equal to the tiled 256-chunk outputs."""
     from aircompressor_tpu_torch.ops import xxhash, zstd_decode, zstd_dfast, zstd_encode
     from aircompressor_tpu_torch.ops.batch import ZstdBatchCodec
 
@@ -2449,7 +2479,7 @@ def zstd_compress_path(dev, corpus: list[bytes], host_frames: list[bytes],
     plans = zstd_encode.plan(chunks, 3, pres)
     times["plan"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    packed = device_enc.pack_plans([q for q in plans if q.device])
+    packed = plans.pack()
     times["pack"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     emitted = zstd_encode.emit_plans(plans, dev)
@@ -2459,13 +2489,14 @@ def zstd_compress_path(dev, corpus: list[bytes], host_frames: list[bytes],
     times["assemble"] = time.perf_counter() - t0
     require(staged == frames, "the staged run writes compress_chunks' frames")
     text = range(4, n)  # the special chunks are runs, periods and a ramp
-    require(all(pres[i] is not None and plans[i].device for i in text),
+    require(all(pres[i] is not None and plans.device[i] for i in text),
             "every text chunk takes the matcher kernel's proposals and the emission")
-    require(zstd_encode.host_frame_rows == sum(not q.device for q in plans),
+    require(zstd_encode.host_frame_rows == int((~plans.device).sum()),
             "every emitted block gains; only unplanned chunks take the host encoder")
     reasons = {}
-    for q in plans:
-        reasons[q.reason or "device"] = reasons.get(q.reason or "device", 0) + 1
+    for r in plans.reason:
+        reasons[r or "device"] = reasons.get(r or "device", 0) + 1
+    py_times = python_compress_planner(chunks, pres, plans, packed, emitted, raw, raw_lens)
 
     # The corpus tiled on the device, through both kernels.
     k256 = zstd_dfast.find_sequences(raw, raw_lens, with_steps=True)
@@ -2499,6 +2530,8 @@ def zstd_compress_path(dev, corpus: list[bytes], host_frames: list[bytes],
     print(f"zstd compress stages, {n} chunks (host clock): " + ", ".join(
         f"{k} {v:.4f} s" for k, v in times.items())
           + f"; total {sum(times.values()):.4f} s (pack is inside emit too)")
+    print(f"zstd compress planners, {n} chunks (host clock, plans, rows and frames equal): "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in py_times.items()))
     steps = k256[6]
     top = int(steps.argmax())
     chain = dict(steps=int(steps[top]), matches=int(k256[3][top]), chunk=top,
@@ -2510,9 +2543,59 @@ def zstd_compress_path(dev, corpus: list[bytes], host_frames: list[bytes],
     print(f"zstd_dfast steps on the corpus: longest chain chunk {top}, {chain['steps']} "
           f"steps ({chain['steps'] - chain['matches']} probes, {chain['matches']} matches); "
           f"{chain['total']} in all; compress_chunks frames sha256 {digest}")
-    return dict(counts=counts, routes=routes, times=times, raw=raw, raw_lens=raw_lens, chain=chain,
+    return dict(counts=counts, routes=routes, times=times, py_times=py_times, raw=raw,
+                raw_lens=raw_lens, chain=chain,
                 big_raw=big_raw, big_lens=big_lens, args=args, big_args=big_args,
                 packed=packed, size=size, host_size=host_size, t_codec=t_codec)
+
+
+def python_compress_planner(chunks, pres, plans, packed, emitted, raw, raw_lens) -> dict:
+    """The Python planner on the compress path's batch, from the same
+    proposals (``device_enc._plan_chunk``, ``pack_plans`` and ``_assemble``),
+    required equal to the C++ planner's plans, rows and frames; its times
+    beside the C++ planner's (each on the host clock; the host matcher runs
+    inside both plans for chunks without proposals)."""
+    from aircompressor_tpu_torch.host.zstd import device_enc, huff_enc
+    from aircompressor_tpu_torch.ops import xxhash
+
+    times = {}
+    t0 = time.perf_counter()
+    py = []
+    for c, pre in zip(chunks, pres):
+        if pre is not None:
+            data = np.frombuffer(c, np.uint8)
+            ll, of, ml = pre
+            pre = (ll, of, ml, device_enc._extract_literals(
+                data, ll, ml, len(c) - int(ll.sum() + ml.sum())))
+        py.append(device_enc._plan_chunk(c, 3, pre))
+    times["python plan"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py_packed = device_enc.pack_plans([q for q in py if q.device])
+    times["python pack"] = time.perf_counter() - t0
+    require([q.reason for q in py] == plans.reason and [q.device for q in py] ==
+            plans.device.tolist(), "the C++ plans' device flags and reasons equal Python's")
+    require(all(np.array_equal(packed[k], py_packed[k]) and packed[k].dtype ==
+                py_packed[k].dtype for k in packed),
+            "the C++ planner's emission rows equal pack_plans'")
+    for i in plans.rows:
+        table, modes, descs = plans.detail(i)
+        require(table == huff_enc.write_table(py[i].ct)
+                and modes == tuple(f.mode for f in py[i].fields)
+                and descs == tuple(f.desc for f in py[i].fields),
+                f"chunk {i}: the C++ Huffman table and field modes equal Python's")
+    rows = emitted["rows"]
+    digest = xxhash.xxh64(raw, raw_lens).cpu().numpy()[rows]
+    args = [emitted[k] for k in ("lit_bytes", "lit_tot", "seq_bytes", "seq_tot")]
+    t0 = time.perf_counter()
+    cc_frames = plans.assemble(*args, digest)
+    times["C++ assemble"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py_frames = [device_enc._assemble(py[i], args[0][r], args[1][r], args[2][r],
+                                      int(args[3][r]), int(digest[r]))
+                 for r, i in enumerate(rows)]
+    times["python assemble"] = time.perf_counter() - t0
+    require(cc_frames == py_frames, "the C++ assembly's frames equal _assemble's")
+    return times
 
 
 def zstd_encode_times(zek: dict, zc: dict) -> list[dict]:

@@ -569,9 +569,9 @@ def test_zstd_emit_kernel_equals_plain(device):
     """The plans of the matcher kernel's proposals and of the host matcher
     at level 1."""
     chunks, (data, lens) = _dfast_batch(device)
-    plans = (zstd_encode.plan(chunks, 3, zstd_encode.match(chunks, data, lens))
-             + zstd_encode.plan(chunks, 1, [None] * len(chunks)))
-    packed = device_enc.pack_plans([p for p in plans if p.device])
+    packs = [zstd_encode.plan(chunks, 3, zstd_encode.match(chunks, data, lens)).pack(),
+             zstd_encode.plan(chunks, 1, [None] * len(chunks)).pack()]
+    packed = {k: np.concatenate([p[k] for p in packs]) for k in packs[0]}
     args = [torch.from_numpy(packed[name]).to(device) for name, _, _ in zstd_encode.EMIT_INPUTS]
     before = zstd_encode.launches
     got = zstd_encode.emit(*args)
