@@ -1,0 +1,9 @@
+"""Input GB/s of encode: the input bytes of every batch the window completed
+(each chunk encoded and checksummed, its lengths, ``ok`` and digests read
+back), over the window's wall time."""
+
+
+def read(run):
+    if run.direction != "encode":
+        return None
+    return run.raw_bytes_done / run.window_s / 1e9
